@@ -1,0 +1,162 @@
+"""The FV3 dynamical core: one full model timestep (fv_dynamics).
+
+Port of `pace_tpu.models.fv3.dynamics` (reference ai2cm/pace
+fv3core/pace/fv3core/stencils/fv_dynamics.py `DynamicalCore`): fv_setup ->
+pt to potential-density temperature -> k_split x { acoustic substeps ->
+tracer advection -> vertical remapping } -> negative-tracer adjustment ->
+D-grid to lat/lon winds.  The step runs eagerly on the device of its
+state; the three hand-written CUDA kernels (transport, SIM1, fillz) run on
+a CUDA device, their plain torch versions on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from pace_torch.models.fv3 import acoustics
+from pace_torch.models.fv3.config import DynamicalCoreConfig, get_column_namelist
+from pace_torch.models.fv3.state import NQ, TRACER_NAMES, DycoreState
+from pace_torch.ops import c2l_ord, moist_cv, neg_adj3, remapping
+from pace_torch.ops import tracer_advection as tradv
+from pace_torch.ops.del2cubed import hyperdiffusion
+from pace_torch.parallel import halo as halo_mod
+from pace_torch.parallel.topology import get_topology
+from pace_torch.utils.gridtools import GridSizing
+
+
+class DynamicalCore:
+    """Configures and steps the FV3 dycore on the device and dtype of its
+    grid data."""
+
+    def __init__(self, config: DynamicalCoreConfig, sizing: GridSizing,
+                 grid_data, timestep: float):
+        if config.hydrostatic:
+            raise NotImplementedError("hydrostatic mode is not implemented")
+        if config.consv_te > 0:
+            raise NotImplementedError("consv_te > 0 needs a global reduction")
+        if config.do_sat_adj:
+            raise NotImplementedError("do_sat_adj is not ported")
+        if config.dynamic_tracer_subcycle:
+            raise NotImplementedError("dynamic_tracer_subcycle is not ported")
+        self.config = config
+        self.sizing = sizing
+        self.grid_data = grid_data
+        self.device = grid_data.device
+        self.dtype = grid_data.dtype
+        self.timestep = timestep
+        self.topo = get_topology(sizing.n, sizing.halo)
+        self.column_namelist = get_column_namelist(config, sizing.nz)
+        # in the grid's dtype, as the reference package computes them
+        ak = grid_data.vertical.ak.detach().cpu().numpy()
+        bk = grid_data.vertical.bk.detach().cpu().numpy()
+        ph = ak + bk * 1.0e5
+        self.vertical_params = dict(
+            ak=ak, bk=bk, dp_ref=ph[1:] - ph[:-1],
+            pfull=(ph[1:] - ph[:-1]) / np.log(ph[1:] / ph[:-1]),
+        )
+
+    def step_dynamics(self, state: DycoreState) -> DycoreState:
+        if state.device != self.device or state.dtype != self.dtype:
+            raise ValueError(
+                f"state on {state.device}/{state.dtype}, dycore on "
+                f"{self.device}/{self.dtype}")
+        return fv_dynamics(
+            state, self.grid_data, self.column_namelist, self.config,
+            self.topo, self.sizing.n, self.sizing.halo, self.timestep,
+            self.vertical_params,
+        )
+
+
+def _preamble(s: dict, config: DynamicalCoreConfig):
+    """fv_setup + pt -> potential-density temperature."""
+    q_con, cvm, pkz, cappa, dp1 = moist_cv.fv_setup(
+        s["qvapor"], s["qliquid"], s["qrain"], s["qsnow"], s["qice"],
+        s["qgraupel"], s["pt"], s["delp"], s["delz"],
+        moist_phys=config.moist_phys,
+    )
+    s["q_con"] = q_con
+    s["pkz"] = pkz
+    s["pt"] = s["pt"] * (1.0 + dp1) * (1.0 - q_con) / pkz
+    wsd = torch.zeros_like(s["ps"])
+    return s, cappa, wsd
+
+
+def _phase_tracer_advection(s: dict, dp_initial, gd, topo, n: int, h: int,
+                            config: DynamicalCoreConfig):
+    if not config.z_tracer:
+        raise NotImplementedError("z_tracer=False")
+    advected = {name: s[name] for name in TRACER_NAMES[:NQ]}
+    advected = tradv.tracer_advection(
+        advected, dp_initial, s["mfxd"], s["mfyd"], s["cxd"],
+        s["cyd"], gd, topo, n, h, config.hord_tr,
+    )
+    s.update(advected)
+    return s
+
+
+def _phase_remap(s: dict, cappa, wsd, gd, config: DynamicalCoreConfig,
+                 topo, n: int, h: int, last_step: bool, mdt: float):
+    """Vertical remapping + (last step) omega."""
+    tracers = {name: s[name] for name in remapping.REMAP_TRACERS}
+    out = remapping.lagrangian_to_eulerian(
+        tracers, s["pt"], s["delp"], s["delz"], s["peln"], s["u"],
+        s["v"], s["w"], cappa, s["q_con"], s["pkz"], s["pk"], s["pe"],
+        s["phis"], s["ps"], wsd, gd, config, n, h, last_step,
+        config.consv_te, mdt,
+    )
+    s.update(out["tracers"])
+    for name in ("pt", "delp", "delz", "peln", "u", "v", "w", "q_con",
+                 "pkz", "pk", "pe", "ps"):
+        s[name] = out[name]
+    cappa = out["cappa"]
+
+    if last_step:
+        # omega from w, then hyperdiffuse it
+        s["omga"] = s["delp"] / s["delz"] * s["w"]
+        if config.nf_omega > 0:
+            s["omga"] = halo_mod.halo_update_scalar(
+                s["omga"], topo.scalar_spec("center")
+            )
+            s["omga"] = hyperdiffusion(
+                s["omga"], gd, 0.18 * gd.damping.da_min, n, h,
+                nmax=config.nf_omega,
+            )
+    return s, cappa
+
+
+def _postlude(s: dict, gd, topo, n: int, h: int,
+              config: DynamicalCoreConfig) -> DycoreState:
+    """Negative-tracer adjustment + D-grid -> lat/lon A-grid winds."""
+    tracers = {name: s[name] for name in remapping.REMAP_TRACERS}
+    tracers, s["pt"] = neg_adj3.adjust_negative_tracers(
+        tracers, s["pt"], s["delp"]
+    )
+    s.update(tracers)
+    ua, va, u, v = c2l_ord.cubed_to_latlon(
+        s["u"], s["v"], gd, topo, n, h, order=config.c2l_ord
+    )
+    s["ua"], s["va"] = ua, va
+    s["u"], s["v"] = u, v
+    return DycoreState(**s)
+
+
+def fv_dynamics(
+    state: DycoreState, gd, col, config: DynamicalCoreConfig, topo,
+    n: int, h: int, timestep: float, vp: dict,
+) -> DycoreState:
+    s = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
+    s, cappa, wsd = _preamble(s, config)
+    k_split = config.k_split
+    mdt = timestep / k_split
+    for k_loop in range(k_split):
+        dp_initial = s["delp"]
+        s, cappa, wsd, _pem = acoustics.acoustic_dynamics(
+            s, cappa, gd, col, config, topo, n, h, mdt, k_loop + 1, wsd, vp,
+        )
+        s = _phase_tracer_advection(s, dp_initial, gd, topo, n, h, config)
+        s, cappa = _phase_remap(s, cappa, wsd, gd, config, topo, n, h,
+                                k_loop == k_split - 1, mdt)
+    return _postlude(s, gd, topo, n, h, config)

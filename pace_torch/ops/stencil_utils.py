@@ -1,0 +1,112 @@
+"""Helpers for writing FV3 stencils as whole-tensor torch expressions.
+
+Stencils are plain functions over full (6, N, N[, nz]) tensors, exactly as
+in `pace_tpu.ops.stencil_utils`.  `shift(q, di, dj)` gives the
+whole-array shifted view, zero-filled at the array bounds (always outside
+any region a stencil writes), so whole arrays compare between the two
+packages.  The region writes (`upd_*`, `set_region`, `region_add`) return
+a new tensor with a slice overwritten and leave their inputs untouched.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# Largest |d| used anywhere (a2b_ord4 extrapolation rows).
+_H = 4
+
+
+def _shift_axis(q: torch.Tensor, d: int, axis: int) -> torch.Tensor:
+    """out[i] = q[i+d] along `axis` where in bounds, 0 elsewhere."""
+    if abs(d) > _H:
+        raise ValueError(f"shift offset {d} exceeds fixed halo {_H}")
+    out = torch.zeros_like(q)
+    size = q.shape[axis] - abs(d)
+    if d > 0:
+        out.narrow(axis, 0, size).copy_(q.narrow(axis, d, size))
+    else:
+        out.narrow(axis, -d, size).copy_(q.narrow(axis, 0, size))
+    return out
+
+
+def shift(q: torch.Tensor, di: int = 0, dj: int = 0, dk: int = 0):
+    """out[..., i, j, k] = q[..., i+di, j+dj, k+dk], zero-filled at the
+    array bounds (axes 1, 2 are i, j; axis 3 if present is k)."""
+    out = q
+    if di:
+        out = _shift_axis(out, di, 1)
+    if dj:
+        out = _shift_axis(out, dj, 2)
+    if dk:
+        out = _shift_axis(out, dk, 3)
+    return out
+
+
+def _put(dest: torch.Tensor, expr: torch.Tensor, index) -> torch.Tensor:
+    """A copy of dest with dest[index] = expr[index] (expr broadcasts)."""
+    out = dest.clone()
+    out[index] = expr.expand_as(dest)[index]
+    return out
+
+
+def upd_cols(dest, expr, *cols):
+    """dest[:, i] = expr[:, i] for static columns i (int or slice)."""
+    out = dest.clone()
+    full = expr.expand_as(dest)
+    for i in cols:
+        out[:, i] = full[:, i]
+    return out
+
+
+def upd_rows(dest, expr, *rows):
+    """dest[:, :, j] = expr[:, :, j] for static rows j (int or slice)."""
+    out = dest.clone()
+    full = expr.expand_as(dest)
+    for j in rows:
+        out[:, :, j] = full[:, :, j]
+    return out
+
+
+def upd_point(dest, expr, i, j):
+    """dest[:, i, j] = expr[:, i, j] for static int-or-slice (i, j)."""
+    return _put(dest, expr, (slice(None), i, j))
+
+
+def set_region(dest, sx: slice, sy: slice, expr):
+    """dest[:, sx, sy] = expr[:, sx, sy] (expr is a whole-array expression)."""
+    return _put(dest, expr, (slice(None), sx, sy))
+
+
+def region_add(dest, sx, sy, expr):
+    """dest[:, sx, sy] += expr[:, sx, sy]."""
+    out = dest.clone()
+    out[:, sx, sy] += expr.expand_as(dest)[:, sx, sy]
+    return out
+
+
+def upd_k(dest, expr, *ks):
+    """dest[..., k] = expr[..., k] for static levels k."""
+    out = dest.clone()
+    full = expr.expand_as(dest)
+    for k in ks:
+        out[..., k] = full[..., k]
+    return out
+
+
+def sign(a, b):
+    """|a| with the sign of b (Fortran SIGN; b == 0 counts as negative, as
+    in the reference `sign`, which tests b > 0)."""
+    return torch.where(b > 0, torch.abs(a), -torch.abs(a))
+
+
+def column(values, like: torch.Tensor) -> torch.Tensor:
+    """A (nz,) numpy/list column as a (1, 1, 1, nz) tensor broadcasting
+    against `like` (same device and dtype)."""
+    return torch.as_tensor(values, dtype=like.dtype,
+                           device=like.device).reshape(1, 1, 1, -1)
+
+
+def level_mask(values, like: torch.Tensor) -> torch.Tensor:
+    """A (nz,) boolean column as a (1, 1, 1, nz) mask on like's device."""
+    return torch.as_tensor(values, dtype=torch.bool,
+                           device=like.device).reshape(1, 1, 1, -1)

@@ -1,0 +1,87 @@
+"""Sub-cycled 2D tracer advection (tracer_2d_1l).
+
+Port of `pace_tpu.ops.tracer_advection` (reference ai2cm/pace
+fv3core/pace/fv3core/stencils/tracer_2d_1l.py `TracerAdvection`) with the
+reference's fixed Courant bound cmax = 2.0, i.e. exactly 3 substeps.  The
+tracers stay stacked (T, 6, N, N, nz) through all substeps, so each
+substep is one batched transport call.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from pace_torch.ops.fvtp2d import transport_batched
+from pace_torch.ops.stencil_utils import shift
+
+
+def _shift_stack(q, di: int = 0, dj: int = 0):
+    """shift() for tracer stacks (T, 6, N, N, nz): i, j are axes 2, 3."""
+    return shift(q.movedim(0, -1), di, dj).movedim(-1, 0)
+
+
+def tracer_advection(
+    tracers: dict, dp1, x_mass_flux, y_mass_flux, x_courant, y_courant,
+    gd, topo, n, h, hord_tr,
+):
+    """Advect tracers (dict of (6,N,N,nz) tensors). Returns updated dict."""
+    hz, ang = gd.horizontal, gd.angle
+    dxa = hz.dxa[..., None]
+    dya = hz.dya[..., None]
+    dx = hz.dx[..., None]
+    dy = hz.dy[..., None]
+    sin1 = ang.sin_sg[..., 0][..., None]
+    sin2 = ang.sin_sg[..., 1][..., None]
+    sin3 = ang.sin_sg[..., 2][..., None]
+    sin4 = ang.sin_sg[..., 3][..., None]
+    rarea = hz.rarea[..., None]
+
+    xfx = torch.where(
+        x_courant > 0.0,
+        x_courant * shift(dxa, -1) * dy * shift(sin3, -1),
+        x_courant * dxa * dy * sin1,
+    )
+    yfx = torch.where(
+        y_courant > 0.0,
+        y_courant * shift(dya, 0, -1) * dx * shift(sin4, 0, -1),
+        y_courant * dya * dx * sin2,
+    )
+
+    cmax = 2.0
+    n_split = math.floor(1.0 + cmax)
+    frac = 1.0 / n_split
+    x_courant = x_courant * frac
+    xfx = xfx * frac
+    x_mass_flux = x_mass_flux * frac
+    y_courant = y_courant * frac
+    yfx = yfx * frac
+    y_mass_flux = y_mass_flux * frac
+
+    names = list(tracers.keys())
+    stacked = torch.stack([tracers[name] for name in names])
+    # halo exchange composed with the transport's corner copies: q_y is the
+    # halo-updated field with its y-corner copy, q_x adds the x-corner copy
+    spec_y, spec_x = topo.scalar_corner_specs()
+    ty, tx = spec_y.on(stacked.device), spec_x.on(stacked.device)
+
+    for it in range(n_split):
+        dp2 = dp1 + (
+            x_mass_flux - shift(x_mass_flux, 1)
+            + y_mass_flux - shift(y_mass_flux, 0, 1)
+        ) * rarea
+        qy = stacked[:, ty["t"], ty["i"], ty["j"]].contiguous()
+        qx = stacked[:, tx["t"], tx["i"], tx["j"]].contiguous()
+        fx, fy = transport_batched(
+            qy, qx, x_courant, y_courant, xfx, yfx, x_mass_flux,
+            y_mass_flux, hz.dxa, hz.dya, hz.area, n, h, hord_tr,
+        )
+        stacked = (
+            qy * dp1
+            + (fx - _shift_stack(fx, 1) + fy - _shift_stack(fy, 0, 1))
+            * rarea
+        ) / dp2
+        if it != n_split - 1:
+            dp1 = dp2
+    return {name: stacked[i] for i, name in enumerate(names)}

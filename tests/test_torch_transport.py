@@ -1,0 +1,86 @@
+"""The port's plain batched transport (pace_torch.ops.fvtp2d) against the
+reference package's jnp fv_tp_2d and its Pallas kernel in interpret mode,
+on the same seeded numpy inputs (N=12, NZ=8, T=3; hord 6/8/10).
+
+Tolerance 1e-12, the bar of tests/test_pallas_transport.py: both sides run
+the same float64 arithmetic in the same order, up to rounding."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pace_tpu.grid.generation import generate_grid_data
+from pace_tpu.ops.fvtp2d import fv_tp_2d
+from pace_tpu.ops.pallas import fvtp2d_pallas
+from pace_torch.ops import fvtp2d as port_fvtp2d
+from pace_torch.testing import TRANSPORT_KEYS, transport_inputs
+
+N_, H, NZ, T = 12, 3, 8, 3
+TOL = dict(rtol=1e-12, atol=1e-12)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torch_threads():
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    return transport_inputs(N_, NZ, T)
+
+
+@pytest.fixture(scope="module")
+def jax_grid():
+    return generate_grid_data(N_, 79, dtype=jnp.float64)
+
+
+def _port(inputs, hord):
+    args = [torch.as_tensor(inputs[k]) for k in TRANSPORT_KEYS]
+    fx, fy = port_fvtp2d.transport_batched(*args, N_, H, hord)
+    return fx.numpy(), fy.numpy()
+
+
+@pytest.mark.parametrize("hord", [6, 8, 10])
+def test_plain_transport_matches_jnp(inputs, jax_grid, hord):
+    j = {k: jnp.asarray(v) for k, v in inputs.items()}
+    fx_ref, fy_ref = jax.jit(jax.vmap(
+        lambda q_y, q_x: fv_tp_2d(
+            q_y, j["crx"], j["cry"], j["xfx"], j["yfx"], jax_grid, N_, H,
+            hord, x_mass_flux=j["xmf"], y_mass_flux=j["ymf"], q_y=q_y,
+            q_x=q_x,
+        )
+    ))(j["q_y"], j["q_x"])
+    fx, fy = _port(inputs, hord)
+    np.testing.assert_allclose(fx, np.asarray(fx_ref), **TOL)
+    np.testing.assert_allclose(fy, np.asarray(fy_ref), **TOL)
+
+
+@pytest.mark.parametrize("hord", [6, 8, 10])
+def test_plain_transport_matches_pallas_interpret(inputs, hord):
+    j = [jnp.asarray(inputs[k]) for k in TRANSPORT_KEYS]
+    fx_ref, fy_ref = fvtp2d_pallas.transport_batched(
+        *j, N_, H, hord, interpret=True)
+    fx, fy = _port(inputs, hord)
+    np.testing.assert_allclose(fx, np.asarray(fx_ref), **TOL)
+    np.testing.assert_allclose(fy, np.asarray(fy_ref), **TOL)
+
+
+def test_port_metrics_match_reference(inputs, jax_grid):
+    """The generator's metrics are the reference grid's, bit for bit."""
+    hz = jax_grid.horizontal
+    for name in ("dxa", "dya", "area"):
+        np.testing.assert_array_equal(inputs[name],
+                                      np.asarray(getattr(hz, name)))
+
+
+def test_kernel_wrapper_rejects_unported_order(inputs):
+    """The CUDA wrapper refuses a PPM order it has no kernel for before it
+    touches the device."""
+    args = [torch.as_tensor(inputs[k]) for k in TRANSPORT_KEYS]
+    with pytest.raises(NotImplementedError):
+        port_fvtp2d.transport_batched_cuda(*args, N_, H, 10)
