@@ -7,14 +7,19 @@ Phases (any failure raises and exits non-zero; nothing falls back):
   0. device and toolchain report;
   1. build the CUDA kernels from pace_torch/csrc with nvcc (sm_90a);
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, float64 and float32, with CUDA-event timings;
+     main path's shapes (and the transport at hord 5 and 10), float64 and
+     float32, with CUDA-event timings and each kernel's bound;
   3. the C12/79 dycore step on the card against the committed digests of
      the reference package (float64 step 1, float32 steps 1-2);
   4. the main path, C48/79 float32, k_split=1, n_split=2, dt=450 s:
      warm-up and timed steps, finite interiors, and the exact launch
-     count of every kernel.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+     count of every kernel;
+  5. the same checks at the dycore settings of
+     examples/configs/c96_baroclinic_shield.yaml: C96/79 float32,
+     k_split=2, n_split=3, hord 8 and hord_tr 10, dt=300 s (one warm-up
+     and two timed steps).
+The last three lines are a JSON object with one entry per kernel, the
+card's name and power limit, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -83,19 +88,52 @@ def max_rel(got, ref, region=...) -> tuple:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# NVIDIA H100 SXM data sheet: HBM3 rate and the float32 rate outside the
+# tensor cores (at the full 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations per output value, counted from the plain versions' formulas
+# (an add, multiply, divide, compare, min/max, abs or transcendental is
+# one): K-T per field and point, 4 PPM cells (slope, interface value,
+# limited edges: 27 each), 4 fluxes (9), 2 advected values (7) and 2 flux
+# combinations (3); K-S per level, about 60 plus 4 transcendentals; K-F
+# per level, about 20.
+OPS_PER_POINT = {"K-T": 4 * 27 + 4 * 9 + 2 * 7 + 2 * 3, "K-S": 64,
+                 "K-F": 20}
+
+
+def bound(name, inputs, outputs, points) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes the function must move
+    (each input read once, each output written once) over the HBM rate
+    and its operations over the float32 rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = points * OPS_PER_POINT[name] / F32_OPS_PER_S * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def transport_bound(args):
+    """The bound of one transport call: args in TRANSPORT_KEYS order; the
+    outputs fx, fy have q_y's shape."""
+    q_y = args[0]
+    return bound("K-T", args, (q_y, q_y), q_y.numel())
+
 def check_transport(results):
     from pace_torch.ops import fvtp2d
     from pace_torch.testing import TRANSPORT_KEYS, transport_inputs
 
+    # the main path's calls (tracer advection; d_sw's w/q_con/pt and its
+    # delp and vorticity; update_dz_d on interfaces), then hord 5 and 10
     cases = [("tracer T=8 hord 8", 8, 79, 8), ("d_sw T=3 hord 6", 3, 79, 6),
-             ("updatedzd T=1 hord 6 nz+1", 1, 80, 6)]
+             ("d_sw T=1 hord 6", 1, 79, 6),
+             ("updatedzd T=1 hord 6 nz+1", 1, 80, 6),
+             ("T=3 hord 5", 3, 79, 5), ("T=3 hord 10", 3, 79, 10)]
     for label, T, nz, hord in cases:
         arrays = transport_inputs(48, nz, T)
-        args = {}
         for dtype in (torch.float64, torch.float32):
-            t = dict(zip(TRANSPORT_KEYS,
-                         on([arrays[k] for k in TRANSPORT_KEYS], dtype)))
-            call = (*[t[k] for k in TRANSPORT_KEYS], 48, 3, hord)
+            args = on([arrays[k] for k in TRANSPORT_KEYS], dtype)
+            call = (*args, 48, 3, hord)
             plain = fvtp2d.transport_batched_plain(*call)
             kern = fvtp2d.transport_batched_cuda(*call)
             torch.cuda.synchronize()
@@ -107,14 +145,17 @@ def check_transport(results):
             ms = cuda_ms(lambda: fvtp2d.transport_batched_cuda(*call))
             plain_ms = cuda_ms(lambda: fvtp2d.transport_batched_plain(*call),
                                warmup=1, repeats=5)
+            bound_ms, bound_by = transport_bound(args)
             log(f"[2] K-T {label} {str(dtype)[6:]}: max_abs_err={err:.3e} "
                 f"rel={rel:.3e} (bar {bar:g}) kernel={ms:.4f} ms "
-                f"plain={plain_ms:.4f} ms {'ok' if ok else 'FAIL'}")
+                f"plain={plain_ms:.4f} ms "
+                + (f"bound={bound_ms:.4f} ms ({bound_by}) "
+                   if dtype == torch.float32 else "")
+                + ("ok" if ok else "FAIL"))
             if not ok:
                 raise AssertionError(f"K-T {label} {dtype}: rel err {rel}")
-            args[dtype] = (err, ms, plain_ms)
-        if T == 8:
-            results["K-T"] = args[torch.float32]
+            if T == 8 and dtype == torch.float32:
+                results["K-T"] = (err, ms, plain_ms, bound_ms, bound_by)
 
 
 def check_sim1(results):
@@ -153,7 +194,10 @@ def check_sim1(results):
                        warmup=1, repeats=5)
     log(f"[2] K-S float32 time: kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
         f"(max_abs_err vs plain {err32:.3e})")
-    results["K-S"] = (err32, ms, plain_ms)
+    results["K-S"] = (err32, ms, plain_ms) + bound(
+        "K-S", x32, kern32, x32[0].numel())
+    log(f"[2] K-S float32 bound={results['K-S'][3]:.4f} ms "
+        f"({results['K-S'][4]})")
 
 
 def check_fillz(results):
@@ -180,14 +224,17 @@ def check_fillz(results):
         if not ok:
             raise AssertionError(f"K-F {dtype}: rel err {rel}")
         if dtype == torch.float32:
-            results["K-F"] = (err, ms, plain_ms)
+            results["K-F"] = (err, ms, plain_ms) + bound(
+                "K-F", (q, dp), (kern,), q.numel())
+            log(f"[2] K-F float32 bound={results['K-F'][3]:.4f} ms "
+                f"({results['K-F'][4]})")
 
 
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the dycore step
 # ---------------------------------------------------------------------------
 
-def make_core(n, dtype, k_split, n_split, dt):
+def make_core(n, dtype, dt, **settings):
     from pace_torch.grid.generation import generate_grid_data
     from pace_torch.models.fv3.config import DynamicalCoreConfig
     from pace_torch.models.fv3.dynamics import DynamicalCore
@@ -196,8 +243,7 @@ def make_core(n, dtype, k_split, n_split, dt):
 
     sizing = GridSizing(n, 79)
     gd = generate_grid_data(n, 79, device="cuda", dtype=dtype)
-    config = DynamicalCoreConfig(do_sat_adj=False, k_split=k_split,
-                                 n_split=n_split)
+    config = DynamicalCoreConfig(do_sat_adj=False, **settings)
     core = DynamicalCore(config, sizing, gd, timestep=dt)
     state = init_baroclinic_state(sizing, device="cuda", dtype=dtype)
     return sizing, core, state
@@ -212,7 +258,7 @@ def check_c12_digests():
     with open(os.path.join(golden, "c12_dycore_digest_f32.json")) as f:
         ref32 = json.load(f)
 
-    sizing, core, state = make_core(12, torch.float64, 1, 1, 225.0)
+    sizing, core, state = make_core(12, torch.float64, 225.0)
     truth = []
     for _ in range(2):
         state = core.step_dynamics(state)
@@ -226,7 +272,7 @@ def check_c12_digests():
     if not ok:
         raise AssertionError(f"C12 f64 digest: {worst} {errs[worst]}")
 
-    sizing, core, state = make_core(12, torch.float32, 1, 1, 225.0)
+    sizing, core, state = make_core(12, torch.float32, 225.0)
     for i in (1, 2):
         state = core.step_dynamics(state)
         got = state_digest(state, sizing)
@@ -272,15 +318,26 @@ def expected_launches(config) -> dict:
     }
 
 
-def run_main_path(card: str) -> dict:
+# The dycore settings of examples/configs/c96_baroclinic_shield.yaml
+# (hord 8 everywhere, hord_tr 10, k_split 2, n_split 3, dt 300 s).
+SHIELD = dict(k_split=2, n_split=3, hord_mt=8, hord_vt=8, hord_tm=8,
+              hord_dp=8, hord_tr=10, rf_fast=True, tau=10.0, d_con=1.0,
+              n_sponge=48)
+
+
+def run_path(tag, n, dt, warmup, timed, card, **settings) -> dict:
+    """Drive DynamicalCore.step_dynamics at C`n`/79 float32 with the launch
+    counts set to 0 just before and read just after; check every
+    prognostic interior is finite and every kernel ran exactly as often as
+    the configuration implies.  Returns the launch counts."""
     from pace_torch.ops import fillz, fvtp2d, riemann
 
     counters = {"K-T": fvtp2d, "K-S": riemann, "K-F": fillz}
-    n, dt, warmup, timed = 48, 450.0, 2, 5
     t0 = time.perf_counter()
-    sizing, core, state = make_core(n, torch.float32, 1, 2, dt)
+    sizing, core, state = make_core(n, torch.float32, dt, **settings)
     torch.cuda.synchronize()
-    log(f"[4] C48/79 float32 k_split=1 n_split=2 dt={dt:g}: set-up "
+    label = " ".join(f"{k}={v}" for k, v in settings.items())
+    log(f"[{tag}] C{n}/79 float32 {label} dt={dt:g}: set-up "
         f"{time.perf_counter() - t0:.2f} s")
     for mod in counters.values():
         mod.LAUNCHES = 0
@@ -299,18 +356,18 @@ def run_main_path(card: str) -> dict:
                  "pe", "pk", "pkz", "peln", "ua", "va", "omga"):
         interior = getattr(state, name)[:, h:h + n, h:h + n]
         if not bool(torch.isfinite(interior).all()):
-            raise AssertionError(f"main path: {name} interior not finite")
-    log("[4] every prognostic field's compute interior is finite")
+            raise AssertionError(f"C{n}: {name} interior not finite")
+    log(f"[{tag}] every prognostic field's compute interior is finite")
 
     per_step = expected_launches(core.config)
     steps = warmup + timed
     for name, count in launches.items():
         expect = per_step[name] * steps
-        log(f"[4] {name} launches: expected {expect} "
+        log(f"[{tag}] {name} launches: expected {expect} "
             f"({per_step[name]}/step x {steps}), got {count}")
         if count != expect or count == 0:
             raise AssertionError(f"{name}: {count} launches, expected {expect}")
-    log(f"[4] info: {ms:.3f} ms/step, {dt / (ms / 1e3):.1f} sim-days/day "
+    log(f"[{tag}] info: {ms:.3f} ms/step, {dt / (ms / 1e3):.1f} sim-days/day "
         f"({timed} steps after {warmup} warm-up) on {card}")
     return launches
 
@@ -363,13 +420,17 @@ def main() -> None:
     # ---- phase 3
     check_c12_digests()
 
-    # ---- phase 4
-    launches = run_main_path(card)
+    # ---- phase 4: the main path
+    launches = run_path(4, 48, 450.0, 2, 5, card, k_split=1, n_split=2)
+
+    # ---- phase 5: the C96 SHiELD-like settings
+    run_path(5, 96, 300.0, 1, 2, card, **SHIELD)
 
     kernels = [
         dict(**KERNELS[k], route="cuda", launches=launches[k],
              max_abs_err=results[k][0], ms=results[k][1],
-             plain_ms=results[k][2])
+             plain_ms=results[k][2], bound_ms=results[k][3],
+             bound_by=results[k][4], library_ms=None)
         for k in ("K-T", "K-S", "K-F")
     ]
     print(json.dumps({"kernels": kernels}))

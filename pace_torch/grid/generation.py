@@ -257,7 +257,7 @@ def grid_arrays_numpy(n: int, nz: int, halo: int = N_HALO_DEFAULT) -> dict:
 
 
 def generate_grid_data(n: int, nz: int, halo: int = N_HALO_DEFAULT, *,
-                       device="cpu", dtype=torch.float32) -> GridData:
+                       device="cuda", dtype=torch.float32) -> GridData:
     """Generate the full metric-term bundle for a C`n` grid with `nz`
     levels (unstretched; the built-in 79/91-level ak/bk tables)."""
     return GridData.from_numpy(grid_arrays_numpy(n, nz, halo), device, dtype)

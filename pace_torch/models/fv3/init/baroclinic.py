@@ -241,7 +241,7 @@ def init_baroclinic_state(
     hydrostatic: bool = False,
     moist_phys: bool = True,
     *,
-    device="cpu",
+    device="cuda",
     dtype=torch.float32,
 ):
     """Build a DycoreState with the J&W baroclinic wave."""

@@ -21,11 +21,9 @@ from pace_torch.ops.delnflux import deln_flux
 from pace_torch.ops.stencil_utils import shift
 from pace_torch.ops.xppm import x_flux, y_flux
 
-# Launches of the CUDA transport kernel pair (one per transport_batched
-# call on a CUDA tensor); read and reset by chip_smoke.py.
+# Launches of the CUDA transport kernel (one per transport_batched call on
+# a CUDA tensor); read and reset by chip_smoke.py.
 LAUNCHES = 0
-
-KERNEL_ORDS = (6, 8)
 
 
 def _fluxes_one(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area,
@@ -74,15 +72,11 @@ def transport_batched_plain(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf,
 
 def transport_batched_cuda(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf,
                            dxa, dya, area, n: int, h: int, hord: int):
-    """The batched transport as two launches of the CUDA kernel (same
-    arguments and results as transport_batched_plain)."""
+    """The batched transport as one launch of the CUDA kernel (same
+    arguments and results as transport_batched_plain, every hord)."""
     global LAUNCHES
     from pace_torch.ops import _cuda
 
-    if hord not in KERNEL_ORDS:
-        raise NotImplementedError(
-            f"hord={hord}: the transport kernel supports hord in "
-            f"{KERNEL_ORDS}")
     T, six, N, N2, nz = q_y.shape
     shared = (crx, cry, xfx, yfx, xmf, ymf)
     _cuda.check(q_y, q_x, shape=(T, six, N, N2, nz))
@@ -90,13 +84,10 @@ def transport_batched_cuda(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf,
     _cuda.check(dxa, dya, area, shape=(six, N, N2), dtype=q_y.dtype)
     if six != 6 or N != N2 or not (h + n + 2 <= N):
         raise ValueError(f"unsupported transport shape {tuple(q_y.shape)}")
-    # launch 1 scratch: inner y/x PPM means and the advected fields
-    fy_in, fx_in, qay, qax = (torch.empty_like(q_y) for _ in range(4))
     fx, fy = torch.empty_like(q_y), torch.empty_like(q_y)
     _cuda.launch(
         "fvtp2d", q_y.dtype,
-        q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area,
-        fy_in, fx_in, qay, qax, fx, fy,
+        q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area, fx, fy,
         ints=(T, N, nz, n, h, hord),
     )
     LAUNCHES += 1

@@ -6,8 +6,8 @@ riem_solver3.py).  All tensors carry k LAST: layer fields (..., nz),
 interface fields (..., nz+1).
 
 `sim1_solver` runs the plain scan form (`sim1_solver_plain`, loops over
-k on whole horizontal slabs) for a CPU tensor and the one-column-per-thread
-CUDA kernel of csrc/sim1.cu for a CUDA tensor; the kernel replaces
+k on whole horizontal slabs) for a CPU tensor and the column-block CUDA
+kernel of csrc/sim1.cu for a CUDA tensor; the kernel replaces
 `pace_tpu.ops.pallas.sim1_pallas.sim1_pallas`.
 """
 
@@ -113,8 +113,6 @@ def sim1_solver_cuda(w, dm, gm, dz, pt, pm, pem, ws, dt, p_fac):
     """The SIM1 solve as one launch of the CUDA kernel (same arguments and
     results as sim1_solver_plain; layer fields (6, Ni, Nj, nz))."""
     global LAUNCHES
-    import ctypes
-
     from pace_torch.ops import _cuda
 
     shape = tuple(w.shape)
@@ -124,15 +122,10 @@ def sim1_solver_cuda(w, dm, gm, dz, pt, pm, pem, ws, dt, p_fac):
     _cuda.check(w, dm, gm, dz, pt, pm, shape=shape, dtype=w.dtype)
     _cuda.check(pem, shape=shape[:-1] + (nz + 1,), dtype=w.dtype)
     _cuda.check(ws, shape=shape[:-1], dtype=w.dtype)
-    ncol = w.numel() // nz
-    lib = _cuda.library()
-    lib.pace_sim1_scratch_slots.restype = ctypes.c_int
-    scratch = torch.empty((lib.pace_sim1_scratch_slots(), nz + 1, ncol),
-                          dtype=w.dtype, device=w.device)
     w_out, dz_out = torch.empty_like(w), torch.empty_like(w)
     pe_out = torch.empty_like(pem)
     _cuda.launch("sim1", w.dtype, w, dm, gm, dz, pt, pm, pem, ws, w_out,
-                 dz_out, pe_out, scratch, ints=(ncol, nz),
+                 dz_out, pe_out, ints=(w.numel() // nz, nz),
                  floats=(dt, p_fac))
     LAUNCHES += 1
     return w_out, dz_out, pe_out

@@ -63,7 +63,7 @@ def main() -> None:
     print(f"  unprofiled: {unprofiled:.3f} ms/step wall over the {STEPS} "
           f"steps before the profiled ones; estimated idle share "
           f"{1 - busy / unprofiled:.3f} (their wall, the profiled busy time)")
-    ours = ("inner_pass", "outer_pass", "sim1_kernel", "fillz_kernel")
+    ours = ("transport_kernel", "sim1_kernel", "fillz_kernel")
     for e in sorted(device, key=lambda e: -e.device_time_total):
         if any(name in e.key for name in ours):
             print(f"  hand-written {e.key[:90]}: {e.count / STEPS:.0f}"

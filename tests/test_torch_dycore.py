@@ -49,10 +49,10 @@ def _load(name):
 
 def _run(dtype, nsteps):
     sizing = GridSizing(N_, NZ)
-    gd = generate_grid_data(N_, NZ, dtype=dtype)
+    gd = generate_grid_data(N_, NZ, device="cpu", dtype=dtype)
     core = DynamicalCore(DynamicalCoreConfig(do_sat_adj=False), sizing, gd,
                          timestep=DT)
-    state = init_baroclinic_state(sizing, dtype=dtype)
+    state = init_baroclinic_state(sizing, device="cpu", dtype=dtype)
     states = []
     for _ in range(nsteps):
         state = core.step_dynamics(state)

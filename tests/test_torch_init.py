@@ -4,6 +4,7 @@ numpy bridge between the two packages.  The arithmetic is the same numpy
 code, so every comparison is exact."""
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -121,13 +122,14 @@ def test_corner_tables_match():
 
 
 def test_grid_data_matches(ref_grid64):
-    port = generate_grid_data(N_, NZ, dtype=torch.float64)
+    port = generate_grid_data(N_, NZ, device="cpu", dtype=torch.float64)
     _assert_leaves_equal(_grid_leaves(ref_grid64), _grid_leaves(port))
 
 
 def test_baroclinic_state_matches():
     ref = ref_init(RefSizing(N_, NZ), dtype=jnp.float64)
-    port = init_baroclinic_state(GridSizing(N_, NZ), dtype=torch.float64)
+    port = init_baroclinic_state(GridSizing(N_, NZ), device="cpu",
+                                 dtype=torch.float64)
     _assert_leaves_equal(_state_leaves(ref), _state_leaves(port))
 
 
@@ -138,11 +140,19 @@ def test_bridge_round_trip(ref_grid64, dtype):
     ref_gd = ref_grid64 if dtype == "float64" else ref_grid(
         N_, NZ, dtype=jnp.float32)
     bridged = GridData.from_numpy(_grid_leaves(ref_gd), "cpu", tdt)
-    own = generate_grid_data(N_, NZ, dtype=tdt)
+    own = generate_grid_data(N_, NZ, device="cpu", dtype=tdt)
     _assert_leaves_equal(_grid_leaves(bridged), _grid_leaves(own))
     assert bridged.dtype == own.dtype == tdt
 
     ref_state = ref_init(RefSizing(N_, NZ), dtype=getattr(jnp, dtype))
     bridged = DycoreState.from_numpy(_state_leaves(ref_state), "cpu", tdt)
-    own = init_baroclinic_state(GridSizing(N_, NZ), dtype=tdt)
+    own = init_baroclinic_state(GridSizing(N_, NZ), device="cpu",
+                                dtype=tdt)
     _assert_leaves_equal(_state_leaves(bridged), _state_leaves(own))
+
+
+@pytest.mark.parametrize("entry", [generate_grid_data, init_baroclinic_state])
+def test_entry_points_default_to_the_card(entry):
+    """The grid and the initial state are built on the card unless the
+    caller asks for the CPU (read from the signature; needs no card)."""
+    assert inspect.signature(entry).parameters["device"].default == "cuda"

@@ -47,7 +47,8 @@ def _err(got, ref, region=...):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("T,nz,hord", [(8, 79, 8), (3, 79, 6), (1, 80, 6)])
+@pytest.mark.parametrize("T,nz,hord", [(8, 79, 8), (3, 79, 6), (1, 80, 6),
+                                       (3, 79, 5), (3, 79, 10)])
 def test_transport_kernel(cuda, dtype, T, nz, hord):
     from pace_torch.ops import fvtp2d
 

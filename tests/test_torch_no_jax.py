@@ -25,9 +25,10 @@ from pace_torch.models.fv3.dynamics import DynamicalCore
 from pace_torch.models.fv3.init.baroclinic import init_baroclinic_state
 from pace_torch.utils.gridtools import GridSizing
 sizing = GridSizing(12, 79)
-gd = generate_grid_data(12, 79, dtype=torch.float32)
+gd = generate_grid_data(12, 79, device="cpu", dtype=torch.float32)
 core = DynamicalCore(DynamicalCoreConfig(do_sat_adj=False), sizing, gd, 225.0)
-state = core.step_dynamics(init_baroclinic_state(sizing, dtype=torch.float32))
+state = core.step_dynamics(init_baroclinic_state(
+    sizing, device="cpu", dtype=torch.float32))
 h = sizing.halo
 assert bool(torch.isfinite(state.pt[:, h:h + 12, h:h + 12]).all())
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "pace_tpu")]

@@ -1,7 +1,9 @@
 """One live C12/79 float64 step of the reference package (jitted JAX) and
 of the port from the same numpy initial state, all 32 fields compared on
-the compute domain at 1e-10 of each field's scale.  Slow tier: the JAX
-side compiles and runs the whole step (~100 s on a CPU)."""
+the compute domain: at the default settings within 1e-10 of each field's
+scale, at the dycore settings of examples/configs/c96_baroclinic_shield.yaml
+within 1e-9.  Slow tier: the JAX side compiles and runs the whole step
+(~100 s on a CPU)."""
 
 import dataclasses
 
@@ -34,17 +36,18 @@ def _leaves(obj):
     return np.asarray(obj) if hasattr(obj, "shape") else obj
 
 
-@pytest.mark.slow
-def test_live_step_matches_reference():
+def _live_step_errors(dt, tol, **settings):
+    """Fields whose port-vs-reference error after one step exceeds tol."""
     gd = ref_grid(N_, NZ, dtype=jnp.float64)
     state0 = ref_init(RefSizing(N_, NZ), dtype=jnp.float64)
-    ref_core = RefCore(RefConfig(do_sat_adj=False), RefSizing(N_, NZ), gd,
-                       timestep=DT)
+    ref_core = RefCore(RefConfig(do_sat_adj=False, **settings),
+                       RefSizing(N_, NZ), gd, timestep=dt)
     ref = jax.jit(ref_core.step_dynamics)(state0)
 
     port_gd = GridData.from_numpy(_leaves(gd), "cpu", torch.float64)
-    port_core = DynamicalCore(DynamicalCoreConfig(do_sat_adj=False),
-                              GridSizing(N_, NZ), port_gd, timestep=DT)
+    port_core = DynamicalCore(
+        DynamicalCoreConfig(do_sat_adj=False, **settings),
+        GridSizing(N_, NZ), port_gd, timestep=dt)
     got = port_core.step_dynamics(
         DycoreState.from_numpy(_leaves(state0), "cpu", torch.float64))
 
@@ -54,6 +57,23 @@ def test_live_step_matches_reference():
         g = getattr(got, f.name).numpy()[:, H:H + N_, H:H + N_]
         scale = float(np.abs(r).max()) + 1e-30
         err = float(np.abs(r - g).max()) / scale
-        if not err <= 1e-10:
+        if not err <= tol:
             bad[f.name] = err
+    return bad
+
+
+@pytest.mark.slow
+def test_live_step_matches_reference():
+    bad = _live_step_errors(DT, 1e-10)
+    assert not bad, bad
+
+
+@pytest.mark.slow
+def test_live_shield_step_matches_reference():
+    """The dycore settings of examples/configs/c96_baroclinic_shield.yaml
+    (hord 8, hord_tr 10, k_split 2, n_split 3, dt 300 s) at C12/79."""
+    bad = _live_step_errors(
+        300.0, 1e-9, k_split=2, n_split=3, hord_mt=8, hord_vt=8, hord_tm=8,
+        hord_dp=8, hord_tr=10, rf_fast=True, tau=10.0, d_con=1.0,
+        n_sponge=48)
     assert not bad, bad

@@ -1,6 +1,6 @@
 """The port's plain batched transport (pace_torch.ops.fvtp2d) against the
 reference package's jnp fv_tp_2d and its Pallas kernel in interpret mode,
-on the same seeded numpy inputs (N=12, NZ=8, T=3; hord 6/8/10).
+on the same seeded numpy inputs (N=12, NZ=8, T=3; hord 5/6/8/10).
 
 Tolerance 1e-12, the bar of tests/test_pallas_transport.py: both sides run
 the same float64 arithmetic in the same order, up to rounding."""
@@ -19,6 +19,9 @@ from pace_torch.testing import TRANSPORT_KEYS, transport_inputs
 
 N_, H, NZ, T = 12, 3, 8, 3
 TOL = dict(rtol=1e-12, atol=1e-12)
+# the limiter classes: smt5 as bl*br < 0 (5), the other monotone form (6),
+# ord 8, and ord 10 (ord-8 limiter, inner passes at 8)
+HORDS = [5, 6, 8, 10]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -45,7 +48,7 @@ def _port(inputs, hord):
     return fx.numpy(), fy.numpy()
 
 
-@pytest.mark.parametrize("hord", [6, 8, 10])
+@pytest.mark.parametrize("hord", HORDS)
 def test_plain_transport_matches_jnp(inputs, jax_grid, hord):
     j = {k: jnp.asarray(v) for k, v in inputs.items()}
     fx_ref, fy_ref = jax.jit(jax.vmap(
@@ -60,7 +63,7 @@ def test_plain_transport_matches_jnp(inputs, jax_grid, hord):
     np.testing.assert_allclose(fy, np.asarray(fy_ref), **TOL)
 
 
-@pytest.mark.parametrize("hord", [6, 8, 10])
+@pytest.mark.parametrize("hord", HORDS)
 def test_plain_transport_matches_pallas_interpret(inputs, hord):
     j = [jnp.asarray(inputs[k]) for k in TRANSPORT_KEYS]
     fx_ref, fy_ref = fvtp2d_pallas.transport_batched(
@@ -78,9 +81,24 @@ def test_port_metrics_match_reference(inputs, jax_grid):
                                       np.asarray(getattr(hz, name)))
 
 
-def test_kernel_wrapper_rejects_unported_order(inputs):
-    """The CUDA wrapper refuses a PPM order it has no kernel for before it
-    touches the device."""
+@pytest.mark.parametrize("hord", HORDS)
+def test_kernel_wrapper_takes_every_order(inputs, monkeypatch, hord):
+    """The CUDA wrapper launches the kernel at every PPM order the plain
+    version computes, and still refuses a bad shape before it launches.
+    The launch itself is recorded instead of made (no card here)."""
+    from pace_torch.ops import _cuda
+
+    launched = []
+    monkeypatch.setattr(_cuda, "launch",
+                        lambda name, dtype, *t, ints=(): launched.append(
+                            (name, len(t), ints)))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     args = [torch.as_tensor(inputs[k]) for k in TRANSPORT_KEYS]
-    with pytest.raises(NotImplementedError):
-        port_fvtp2d.transport_batched_cuda(*args, N_, H, 10)
+    fx, fy = port_fvtp2d.transport_batched_cuda(*args, N_, H, hord)
+    assert fx.shape == fy.shape == args[0].shape
+    N = args[0].shape[2]
+    assert launched == [("fvtp2d", 13, (T, N, NZ, N_, H, hord))]
+    with pytest.raises(ValueError):
+        port_fvtp2d.transport_batched_cuda(args[0][:, :, 1:].contiguous(),
+                                           *args[1:], N_, H, hord)
+    assert len(launched) == 1
