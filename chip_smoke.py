@@ -7,8 +7,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
   0. device and toolchain report;
   1. build the CUDA kernels from pace_torch/csrc with nvcc (sm_90a);
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (and the transport at hord 5 and 10), float64 and
-     float32, with CUDA-event timings and each kernel's bound;
+     main path's shapes (the transport also at hord 5 and 10; fillz on
+     inputs with many negative columns, with few, and with a zero or
+     non-finite dp or q planted in columns without negatives), float64
+     and float32, with CUDA-event timings and each kernel's bound;
   3. the C12/79 dycore step on the card against the committed digests of
      the reference package (float64 step 1, float32 steps 1-2);
   4. the main path, C48/79 float32, k_split=1, n_split=2, dt=450 s:
@@ -17,7 +19,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
   5. the same checks at the dycore settings of
      examples/configs/c96_baroclinic_shield.yaml: C96/79 float32,
      k_split=2, n_split=3, hord 8 and hord_tr 10, dt=300 s (one warm-up
-     and two timed steps).
+     and two timed steps);
+  6. the same checks at the production configuration of bench.py:
+     C48/79 float32, k_split=2, n_split=6, dt=450 s (one warm-up and two
+     timed steps).
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -80,7 +85,9 @@ def max_rel(got, ref, region=...) -> tuple:
                 raise AssertionError("non-finite values differ")
         fin = torch.isfinite(r)
         err = max(err, float((g[fin] - r[fin]).abs().max()))
-        scale = max(scale, float(r[region].abs().max()))
+        inside = r[region]
+        scale = max(scale,
+                    float(inside[torch.isfinite(inside)].abs().max()))
     return err, err / (scale + 1e-300)
 
 
@@ -202,36 +209,53 @@ def check_sim1(results):
 
 def check_fillz(results):
     from pace_torch.ops import fillz
-    from pace_torch.testing import fillz_inputs
+    from pace_torch.testing import fillz_inputs, plant_fillz_hazards
 
-    arrays = fillz_inputs(9, 56, 56, 79)
-    for dtype in (torch.float64, torch.float32):
-        q, dp = on(arrays, dtype)
-        plain = torch.stack([fillz.fix_tracer_plain(q[t], dp)
-                             for t in range(q.shape[0])])
-        kern = fillz.fix_tracers_cuda(q, dp)
-        torch.cuda.synchronize()
-        err, rel = max_rel([kern], [plain])
-        bar = 1e-12 if dtype == torch.float64 else 1e-5
-        ok = rel <= bar
-        ms = cuda_ms(lambda: fillz.fix_tracers_cuda(q, dp))
-        plain_ms = cuda_ms(lambda: torch.stack(
-            [fillz.fix_tracer_plain(q[t], dp) for t in range(q.shape[0])]),
-            warmup=1, repeats=3)
-        log(f"[2] K-F (9,6,56,56,79) {str(dtype)[6:]}: max_abs_err={err:.3e} "
-            f"rel={rel:.3e} (bar {bar:g}) kernel={ms:.4f} ms "
-            f"plain={plain_ms:.4f} ms {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"K-F {dtype}: rel err {rel}")
-        if dtype == torch.float32:
-            results["K-F"] = (err, ms, plain_ms) + bound(
-                "K-F", (q, dp), (kern,), q.numel())
-            log(f"[2] K-F float32 bound={results['K-F'][3]:.4f} ms "
-                f"({results['K-F'][4]})")
+    def plain_of(q, dp):
+        return torch.stack([fillz.fix_tracer_plain(q[t], dp)
+                            for t in range(q.shape[0])])
+
+    # many negative columns (every column takes the recurrence), few (most
+    # leave as a copy), and the values that forbid the copy planted in
+    # columns without negatives
+    few = fillz_inputs(9, 56, 56, 79, neg_frac=1e-4)
+    cases = [("neg_frac 0.3", fillz_inputs(9, 56, 56, 79), True),
+             ("neg_frac 1e-4", few, True),
+             ("neg_frac 1e-4, planted dp = 0 and non-finite dp, q",
+              plant_fillz_hazards(*few), False)]
+    for label, arrays, timed in cases:
+        for dtype in (torch.float64, torch.float32):
+            q, dp = on(arrays, dtype)
+            plain = plain_of(q, dp)
+            kern = fillz.fix_tracers_cuda(q, dp)
+            torch.cuda.synchronize()
+            err, rel = max_rel([kern], [plain])
+            bar = 1e-12 if dtype == torch.float64 else 1e-5
+            ok = rel <= bar
+            negative = float((q < 0).any(-1).float().mean())
+            text = (f"[2] K-F (9,6,56,56,79) {label} {str(dtype)[6:]}: "
+                    f"{negative:.4f} of columns hold a negative, "
+                    f"{int((~torch.isfinite(plain)).sum())} non-finite "
+                    f"outputs, max_abs_err={err:.3e} rel={rel:.3e} "
+                    f"(bar {bar:g}) ")
+            if not ok:
+                log(text + "FAIL")
+                raise AssertionError(f"K-F {label} {dtype}: rel err {rel}")
+            if not timed:
+                log(text + "ok")
+                continue
+            ms = cuda_ms(lambda: fillz.fix_tracers_cuda(q, dp))
+            plain_ms = cuda_ms(lambda: plain_of(q, dp), warmup=1, repeats=3)
+            bound_ms, bound_by = bound("K-F", (q, dp), (kern,), q.numel())
+            log(text + f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+                + (f"bound={bound_ms:.4f} ms ({bound_by}) "
+                   if dtype == torch.float32 else "") + "ok")
+            if dtype == torch.float32 and "K-F" not in results:
+                results["K-F"] = (err, ms, plain_ms, bound_ms, bound_by)
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 4: the dycore step
+# phases 3 to 6: the dycore step
 # ---------------------------------------------------------------------------
 
 def make_core(n, dtype, dt, **settings):
@@ -388,6 +412,8 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from pace_torch.ops import _cuda
 
+    started = time.perf_counter()
+
     # ---- phase 0
     card = card_line()
     log(f"[0] device: {torch.cuda.get_device_name(0)} "
@@ -425,6 +451,10 @@ def main() -> None:
 
     # ---- phase 5: the C96 SHiELD-like settings
     run_path(5, 96, 300.0, 1, 2, card, **SHIELD)
+
+    # ---- phase 6: the production configuration of bench.py
+    run_path(6, 48, 450.0, 1, 2, card, k_split=2, n_split=6)
+    log(f"[6] all phases took {time.perf_counter() - started:.0f} s")
 
     kernels = [
         dict(**KERNELS[k], route="cuda", launches=launches[k],

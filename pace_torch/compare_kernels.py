@@ -1,27 +1,36 @@
-"""Time the transport (K-T) and SIM1 (K-S) kernels against an earlier
-version of their sources, on one GPU, in one process.
+"""Time the transport (K-T), SIM1 (K-S) and fillz (K-F) kernels against an
+earlier version of their sources, on one GPU, in one process.
 
     git show <commit>:pace_torch/csrc/fvtp2d.cu > build/earlier/fvtp2d.cu
     git show <commit>:pace_torch/csrc/sim1.cu > build/earlier/sim1.cu
+    git show <commit>:pace_torch/csrc/fillz.cu > build/earlier/fillz.cu
     python -m pace_torch.compare_kernels build/earlier
 
-The earlier sources must have the C interface of the first CUDA port
-(pace_fvtp2d_* with four scratch fields before fx and fy, hord 6 or 8;
-pace_sim1_* with one scratch buffer of pace_sim1_scratch_slots() rows).
-They are built with the same nvcc flags into build/pace_torch/earlier/.
+Only the kernels whose source the directory holds are compared.  An
+earlier fvtp2d.cu or sim1.cu must have the C interface of the first CUDA
+port (pace_fvtp2d_* with four scratch fields before fx and fy, hord 6 or
+8; pace_sim1_* with one scratch buffer of pace_sim1_scratch_slots() rows);
+pace_fillz_* has kept its interface.  The sources are built with the same
+nvcc flags into build/pace_torch/earlier/.
 
-Two sets of inputs, both at C48/79 float32:
+The inputs, all at C48/79 float32:
   - synthetic: pace_torch.testing's seeded inputs (chip_smoke.py phase 2):
-    transport T=8 at hord 8, SIM1 on (6, 56, 56, 79);
+    transport T=8 at hord 8, SIM1 on (6, 56, 56, 79), fillz on
+    (9, 6, 56, 56, 79) with 30% negative values and, as "synthetic mostly
+    clean", with one value in 10,000 negative;
   - step: the arguments of the first T=8 transport call (tracer
-    advection) and of the first SIM1 call of a C48/79 k_split=1 n_split=2
-    step, captured after two warm-up steps.
+    advection), of the first SIM1 call and of the fillz call of a C48/79
+    k_split=1 n_split=2 step, captured after two warm-up steps.
 Each kernel is timed with CUDA events (20 launches after 3 warm-up, each
 through a wrapper that allocates its outputs as the port's does) in turns:
 earlier, current, current, earlier.  The results of the two versions are
-compared element by element.  Prints one JSON line per measurement (for
-K-T also the share of warps of the earlier kernel whose Courant numbers,
-crx and cry, take both signs) and the card's name and power limit.
+compared element by element.  Prints one JSON line per measurement and the
+card's name and power limit.  For K-T a line also holds the share of warps
+of the earlier kernel whose Courant numbers, crx and cry, take both signs;
+for K-F the share of columns that hold a negative value, the share of
+runs of 32 consecutive columns that hold such a column (one warp of the
+current kernel's recurrence) and the share of columns with a zero or
+non-finite dp.
 """
 
 from __future__ import annotations
@@ -35,9 +44,10 @@ import sys
 
 import torch
 
-from pace_torch.ops import _cuda, fvtp2d, riemann
+from pace_torch.ops import _cuda, fillz, fvtp2d, riemann
 
 WARMUP, REPEATS = 3, 20
+SOURCES = {"K-T": "fvtp2d.cu", "K-S": "sim1.cu", "K-F": "fillz.cu"}
 
 
 def cuda_ms(fn) -> float:
@@ -57,7 +67,10 @@ def build_earlier(src_dir: pathlib.Path) -> ctypes.CDLL:
     out = _cuda.BUILD_DIR / "earlier"
     out.mkdir(parents=True, exist_ok=True)
     lib = out / "libearlier.so"
-    sources = [str(src_dir / "fvtp2d.cu"), str(src_dir / "sim1.cu")]
+    sources = [str(src_dir / name) for name in SOURCES.values()
+               if (src_dir / name).exists()]
+    if not sources:
+        raise SystemExit(f"no kernel source in {src_dir}")
     proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib),
                            *sources], capture_output=True, text=True)
     if proc.returncode != 0:
@@ -120,21 +133,52 @@ def earlier_sim1(lib):
     return run
 
 
-def synthetic_inputs():
-    from pace_torch.testing import TRANSPORT_KEYS, sim1_inputs, \
-        transport_inputs
+def earlier_fillz(lib):
+    fns = {torch.float32: _fn(lib, "pace_fillz_f32", 3, 3, 0),
+           torch.float64: _fn(lib, "pace_fillz_f64", 3, 3, 0)}
+
+    def run(q, dp):
+        nz = q.shape[-1]
+        out = torch.empty_like(q)
+        err = fns[q.dtype](q.data_ptr(), dp.data_ptr(), out.data_ptr(),
+                           q.shape[0], dp.numel() // nz, nz, _stream(q))
+        if err:
+            raise RuntimeError(f"earlier fillz kernel failed ({err})")
+        return (out,)
+
+    return run
+
+
+def current_fillz(q, dp):
+    return (fillz.fix_tracers_cuda(q, dp),)
+
+
+def synthetic_inputs() -> dict:
+    """label -> kernel -> arguments, on the card."""
+    from pace_torch.testing import TRANSPORT_KEYS, fillz_inputs, \
+        sim1_inputs, transport_inputs
+
+    def on(arrays):
+        return [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                for a in arrays]
 
     arrays = transport_inputs(48, 79, 8)
-    t = [torch.as_tensor(arrays[k], dtype=torch.float32, device="cuda")
-         for k in TRANSPORT_KEYS]
-    s = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
-         for a in sim1_inputs(56, 56, 79)]
-    return (*t, 48, 3, 8), (*s, 225.0, 0.05)
+    return {
+        "synthetic": {
+            "K-T": (*on(arrays[k] for k in TRANSPORT_KEYS), 48, 3, 8),
+            "K-S": (*on(sim1_inputs(56, 56, 79)), 225.0, 0.05),
+            "K-F": tuple(on(fillz_inputs(9, 56, 56, 79))),
+        },
+        "synthetic mostly clean": {
+            "K-F": tuple(on(fillz_inputs(9, 56, 56, 79, neg_frac=1e-4))),
+        },
+    }
 
 
-def step_inputs():
-    """The arguments of the first T=8 transport call and the first SIM1
-    call of a C48/79 f32 k1/n2 step, after two warm-up steps."""
+def step_inputs() -> dict:
+    """The arguments of the first T=8 transport call, the first SIM1 call
+    and the fillz call of a C48/79 f32 k1/n2 step, after two warm-up
+    steps."""
     from pace_torch.grid.generation import generate_grid_data
     from pace_torch.models.fv3.config import DynamicalCoreConfig
     from pace_torch.models.fv3.dynamics import DynamicalCore
@@ -149,6 +193,7 @@ def step_inputs():
         state = core.step_dynamics(state)
     got = {}
     kt, ks = fvtp2d.transport_batched_cuda, riemann.sim1_solver_cuda
+    kf = fillz.fix_tracers_cuda
 
     def keep(args):
         return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
@@ -162,14 +207,20 @@ def step_inputs():
         got.setdefault("K-S", keep(args))
         return ks(*args)
 
+    def grab_kf(*args):
+        got.setdefault("K-F", keep(args))
+        return kf(*args)
+
     fvtp2d.transport_batched_cuda = grab_kt
     riemann.sim1_solver_cuda = grab_ks
+    fillz.fix_tracers_cuda = grab_kf
     try:
         core.step_dynamics(state)
     finally:
         fvtp2d.transport_batched_cuda = kt
         riemann.sim1_solver_cuda = ks
-    return got["K-T"], got["K-S"]
+        fillz.fix_tracers_cuda = kf
+    return got
 
 
 def mixed_sign(courant) -> float:
@@ -181,15 +232,27 @@ def mixed_sign(courant) -> float:
     return float((chunks.any(1) & ~chunks.all(1)).float().mean())
 
 
+def fillz_columns(q, dp) -> dict:
+    """The shares of columns (k last) that hold a negative value, of runs
+    of 32 consecutive columns of a tracer that hold such a column, and of
+    columns whose dp holds a zero or a non-finite value (which take the
+    recurrence without a negative)."""
+    neg = (q < 0).any(-1).reshape(q.shape[0], -1)
+    runs = neg[:, : neg.shape[1] // 32 * 32].reshape(q.shape[0], -1, 32)
+    bad_dp = ((dp == 0) | ~torch.isfinite(dp)).any(-1)
+    return dict(negative_columns=float(neg.float().mean()),
+                negative_runs_of_32=float(runs.any(-1).float().mean()),
+                zero_or_nonfinite_dp_columns=float(bad_dp.float().mean()))
+
+
 def compare(name, inputs, label, earlier, current, card):
     old = earlier(*inputs)
     new = current(*inputs)
     torch.cuda.synchronize()
-    diff = 0.0
+    diff, unlike = 0.0, 0
     for o, c in zip(old, new):
-        if not torch.equal(torch.isfinite(o), torch.isfinite(c)):
-            raise AssertionError(f"{name} {label}: non-finite cells differ")
-        fin = torch.isfinite(o)
+        fin = torch.isfinite(o) & torch.isfinite(c)
+        unlike += int((torch.isfinite(o) != torch.isfinite(c)).sum())
         diff = max(diff, float((o[fin] - c[fin]).abs().max()))
     times = [cuda_ms(lambda: earlier(*inputs)),
              cuda_ms(lambda: current(*inputs)),
@@ -198,13 +261,17 @@ def compare(name, inputs, label, earlier, current, card):
     extra = {}
     if name == "K-T":
         extra["mixed_sign_warps"] = [mixed_sign(c) for c in inputs[2:4]]
+    if name == "K-F":
+        extra.update(fillz_columns(*inputs))
     row = dict(kernel=name, inputs=label, **extra,
                shape=list(inputs[0].shape), dtype=str(inputs[0].dtype),
                earlier_ms=[times[0], times[3]],
                current_ms=[times[1], times[2]],
                ratio=(times[1] + times[2]) / (times[0] + times[3]),
-               max_abs_diff=diff, card=card)
+               max_abs_diff=diff, nonfinite_cells_differ=unlike, card=card)
     print(json.dumps(row), flush=True)
+    if unlike:
+        raise AssertionError(f"{name} {label}: non-finite cells differ")
 
 
 def main() -> None:
@@ -217,16 +284,19 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    lib = build_earlier(pathlib.Path(os.path.abspath(sys.argv[1])))
+    src_dir = pathlib.Path(os.path.abspath(sys.argv[1]))
+    lib = build_earlier(src_dir)
     _cuda.library()
-    kt_old, ks_old = earlier_transport(lib), earlier_sim1(lib)
-    kt_syn, ks_syn = synthetic_inputs()
-    kt_step, ks_step = step_inputs()
-    for label, kt_in, ks_in in (("synthetic", kt_syn, ks_syn),
-                                ("step", kt_step, ks_step)):
-        compare("K-T", kt_in, label, kt_old, fvtp2d.transport_batched_cuda,
-                card)
-        compare("K-S", ks_in, label, ks_old, riemann.sim1_solver_cuda, card)
+    versions = {
+        "K-T": (earlier_transport, fvtp2d.transport_batched_cuda),
+        "K-S": (earlier_sim1, riemann.sim1_solver_cuda),
+        "K-F": (earlier_fillz, current_fillz),
+    }
+    for label, inputs in {**synthetic_inputs(), "step": step_inputs()}.items():
+        for name, args in inputs.items():
+            if (src_dir / SOURCES[name]).exists():
+                earlier, current = versions[name]
+                compare(name, args, label, earlier(lib), current, card)
 
 
 if __name__ == "__main__":

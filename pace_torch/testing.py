@@ -86,6 +86,35 @@ def fillz_inputs(T: int, ni: int, nj: int, nz: int, seed: int = 9,
     return q, dp
 
 
+def plant_fillz_hazards(q, dp):
+    """Copies of fillz inputs with the values planted that make the plain
+    version's whole-array arithmetic non-finite in a column without
+    negatives: a zero, infinite or NaN dp (a zero borrow divided by dp at
+    every level), and a NaN or infinite q.  Each hazard goes into a column
+    of its own (three columns a hazard), made non-negative in every tracer
+    first, at a random level (and a zero dp also at the levels the borders
+    treat apart: 0, nz-2, nz-1)."""
+    rng = np.random.RandomState(11)
+    q, dp = q.copy(), dp.copy()
+    T, nz = q.shape[0], q.shape[-1]
+    qc, dpc = q.reshape(T, -1, nz), dp.reshape(-1, nz)
+    hazards = [("dp", 0.0, None), ("dp", np.inf, None), ("dp", np.nan, None),
+               ("q", np.nan, None), ("q", np.inf, None),
+               ("dp", 0.0, 0), ("dp", 0.0, nz - 2), ("dp", 0.0, nz - 1),
+               ("q", np.nan, 0)]
+    cols = rng.choice(dpc.shape[0], size=3 * len(hazards),
+                      replace=False)
+    for i, col in enumerate(cols):
+        field, value, level = hazards[i % len(hazards)]
+        k = rng.randint(nz) if level is None else level
+        qc[:, col] = np.abs(qc[:, col])
+        if field == "dp":
+            dpc[col, k] = value
+        else:
+            qc[rng.randint(T), col, k] = value
+    return q, dp
+
+
 def state_digest(state, sizing) -> dict:
     """Moments and strided samples of every field's compute domain, the
     digest form of the reference package's committed golden files

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from pace_torch.testing import (
-    TRANSPORT_KEYS, fillz_inputs, sim1_inputs, transport_inputs,
+    TRANSPORT_KEYS, fillz_inputs, plant_fillz_hazards, sim1_inputs,
+    transport_inputs,
 )
 
 pytestmark = pytest.mark.gpu
@@ -39,10 +40,13 @@ def _err(got, ref, region=...):
     err, scale = 0.0, 0.0
     for g, r in zip(got, ref):
         g, r = g.double(), r.double()
-        assert torch.equal(torch.isfinite(g), torch.isfinite(r))
+        for test in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(test(g), test(r))
         fin = torch.isfinite(r)
         err = max(err, float((g[fin] - r[fin]).abs().max()))
-        scale = max(scale, float(r[region].abs().max()))
+        inside = r[region]
+        scale = max(scale,
+                    float(inside[torch.isfinite(inside)].abs().max()))
     return err / (scale + 1e-300)
 
 
@@ -76,14 +80,55 @@ def test_sim1_kernel(cuda):
         assert _err([k], [t]) <= 3.0 * _err([p], [t]) + 1e-6
 
 
+# many negative columns, few (most columns leave the kernel as a copy), a
+# zero or non-finite dp or q planted in columns without negatives, and
+# sizes the blocks do not divide (a ragged last block; an even nz, whose
+# columns are padded in shared memory; the least nz)
+FILLZ_CASES = {
+    "dense": lambda: fillz_inputs(9, 24, 24, 79),
+    "mostly clean": lambda: fillz_inputs(9, 24, 24, 79, neg_frac=1e-4),
+    "planted hazards": lambda: plant_fillz_hazards(
+        *fillz_inputs(9, 24, 24, 79, neg_frac=1e-4)),
+    "ragged, odd nz": lambda: fillz_inputs(3, 5, 7, 79, neg_frac=0.05),
+    "ragged, even nz": lambda: plant_fillz_hazards(
+        *fillz_inputs(2, 5, 7, 80, neg_frac=0.05)),
+    "nz 3": lambda: fillz_inputs(2, 5, 7, 3),
+}
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_fillz_kernel(cuda, dtype):
+@pytest.mark.parametrize("case", FILLZ_CASES)
+def test_fillz_kernel(cuda, dtype, case):
     from pace_torch.ops import fillz
 
     q, dp = (torch.as_tensor(a, dtype=dtype, device=cuda)
-             for a in fillz_inputs(9, 24, 24, 79))
+             for a in FILLZ_CASES[case]())
     plain = torch.stack([fillz.fix_tracer_plain(q[t], dp)
                          for t in range(q.shape[0])])
     bar = 1e-12 if dtype == torch.float64 else 1e-5
     assert _err([fillz.fix_tracers_cuda(q, dp)], [plain]) <= bar
-    assert np.isfinite(plain.cpu().numpy()).all()
+    assert np.isfinite(plain.cpu().numpy()).all() == ("hazards" not in case
+                                                      and "even" not in case)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fillz_kernel_unaligned_columns(cuda, dtype):
+    """Tensors whose storage starts off a 16-byte boundary: the kernel
+    takes narrower copies at the ends of each chunk and agrees all the
+    same."""
+    from pace_torch.ops import fillz
+
+    q, dp = (torch.as_tensor(a, dtype=dtype, device=cuda)
+             for a in fillz_inputs(3, 5, 7, 79, neg_frac=0.05))
+    plain = torch.stack([fillz.fix_tracer_plain(q[t], dp)
+                         for t in range(q.shape[0])])
+    for off_q, off_dp in ((1, 0), (0, 1), (3, 1)):
+        q1 = torch.empty(q.numel() + 4, dtype=dtype, device=cuda)
+        q1 = q1[off_q:off_q + q.numel()].view(q.shape).copy_(q)
+        dp1 = torch.empty(dp.numel() + 4, dtype=dtype, device=cuda)
+        dp1 = dp1[off_dp:off_dp + dp.numel()].view(dp.shape).copy_(dp)
+        assert q1.data_ptr() % 16 == (off_q * q.element_size()) % 16
+        got = fillz.fix_tracers_cuda(q1, dp1)
+        assert torch.equal(got, fillz.fix_tracers_cuda(q, dp))
+        bar = 1e-12 if dtype == torch.float64 else 1e-5
+        assert _err([got], [plain]) <= bar
