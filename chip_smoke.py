@@ -22,7 +22,22 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      and two timed steps);
   6. the same checks at the production configuration of bench.py:
      C48/79 float32, k_split=2, n_split=6, dt=450 s (one warm-up and two
-     timed steps).
+     timed steps);
+  7. the coupled model step behind `pace_torch.driver.Driver`, C48/79
+     float32, dt=225 s, k_split=1, n_split=2, do_sat_adj, fv_sg_adj=3600,
+     n_sponge=48, GFDL microphysics with mp_time=225 (the settings of
+     examples/configs/baroclinic_c12_coupled.yaml at C48): one warm-up and
+     three timed steps with the dycore and physics halves timed apart,
+     finite interiors, pt within 150-350 K, delp > 0, the dycore half's
+     exact launch counts, and the column water budget of the physics half
+     (also on a step from a moistened state, where it rains);
+  7b. the C12/79 float64 coupled step on the card against the same step of
+     the port on the CPU, every field within 1e-9 of its scale;
+  8. the coupled step with the MLP emulator as the microphysics scheme, at
+     the dycore settings of examples/configs/c384_multihost_emulator.yaml
+     and C96/79 float32, with seeded weights and a non-zero output layer:
+     one warm-up and two timed steps, finite interiors, exact launch
+     counts and the emulator's water conservation.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -349,22 +364,58 @@ SHIELD = dict(k_split=2, n_split=3, hord_mt=8, hord_vt=8, hord_tm=8,
               n_sponge=48)
 
 
+def _counters() -> dict:
+    from pace_torch.ops import fillz, fvtp2d, riemann
+
+    return {"K-T": fvtp2d, "K-S": riemann, "K-F": fillz}
+
+
+def reset_launches() -> None:
+    for mod in _counters().values():
+        mod.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.LAUNCHES for name, mod in _counters().items()}
+
+
+PROGNOSTICS = ("u", "v", "w", "delp", "delz", "pt", "qvapor", "qliquid",
+               "qrain", "qice", "qsnow", "qgraupel", "qcld", "ps", "pe", "pk",
+               "pkz", "peln", "ua", "va", "omga")
+
+
+def check_finite(tag, state, sizing) -> None:
+    h, n = sizing.halo, sizing.n
+    for name in PROGNOSTICS:
+        interior = getattr(state, name)[:, h:h + n, h:h + n]
+        if not bool(torch.isfinite(interior).all()):
+            raise AssertionError(f"C{n}: {name} interior not finite")
+    log(f"[{tag}] every prognostic field's compute interior is finite")
+
+
+def check_launches(tag, launches, config, steps) -> None:
+    per_step = expected_launches(config)
+    for name, count in launches.items():
+        expect = per_step[name] * steps
+        log(f"[{tag}] {name} launches: expected {expect} "
+            f"({per_step[name]}/step x {steps}), got {count}")
+        if count != expect or count == 0:
+            raise AssertionError(
+                f"{name}: {count} launches, expected {expect}")
+
+
 def run_path(tag, n, dt, warmup, timed, card, **settings) -> dict:
     """Drive DynamicalCore.step_dynamics at C`n`/79 float32 with the launch
     counts set to 0 just before and read just after; check every
     prognostic interior is finite and every kernel ran exactly as often as
     the configuration implies.  Returns the launch counts."""
-    from pace_torch.ops import fillz, fvtp2d, riemann
-
-    counters = {"K-T": fvtp2d, "K-S": riemann, "K-F": fillz}
     t0 = time.perf_counter()
     sizing, core, state = make_core(n, torch.float32, dt, **settings)
     torch.cuda.synchronize()
     label = " ".join(f"{k}={v}" for k, v in settings.items())
     log(f"[{tag}] C{n}/79 float32 {label} dt={dt:g}: set-up "
         f"{time.perf_counter() - t0:.2f} s")
-    for mod in counters.values():
-        mod.LAUNCHES = 0
+    reset_launches()
     for _ in range(warmup):
         state = core.step_dynamics(state)
     torch.cuda.synchronize()
@@ -373,27 +424,243 @@ def run_path(tag, n, dt, warmup, timed, card, **settings) -> dict:
         state = core.step_dynamics(state)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / timed * 1e3
-    launches = {name: mod.LAUNCHES for name, mod in counters.items()}
-
-    h = sizing.halo
-    for name in ("u", "v", "w", "delp", "delz", "pt", "qvapor", "ps",
-                 "pe", "pk", "pkz", "peln", "ua", "va", "omga"):
-        interior = getattr(state, name)[:, h:h + n, h:h + n]
-        if not bool(torch.isfinite(interior).all()):
-            raise AssertionError(f"C{n}: {name} interior not finite")
-    log(f"[{tag}] every prognostic field's compute interior is finite")
-
-    per_step = expected_launches(core.config)
-    steps = warmup + timed
-    for name, count in launches.items():
-        expect = per_step[name] * steps
-        log(f"[{tag}] {name} launches: expected {expect} "
-            f"({per_step[name]}/step x {steps}), got {count}")
-        if count != expect or count == 0:
-            raise AssertionError(f"{name}: {count} launches, expected {expect}")
+    launches = read_launches()
+    check_finite(tag, state, sizing)
+    check_launches(tag, launches, core.config, warmup + timed)
     log(f"[{tag}] info: {ms:.3f} ms/step, {dt / (ms / 1e3):.1f} sim-days/day "
         f"({timed} steps after {warmup} warm-up) on {card}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 7, 7b, 8: the coupled step behind the Driver
+# ---------------------------------------------------------------------------
+
+WATER = ("qvapor", "qliquid", "qrain", "qice", "qsnow", "qgraupel")
+# examples/configs/baroclinic_c12_coupled.yaml
+COUPLED = dict(dycore_config=dict(k_split=1, n_split=2, do_sat_adj=True,
+                                  fv_sg_adj=3600, n_sponge=48),
+               physics_config=dict(dt_atmos=225, mp_time=225))
+
+
+def driver_config(n, dtype, dt, dycore_config, physics_config,
+                  steps=1) -> dict:
+    return dict(nx_tile=n, nz=79, dt_atmos=dt, seconds=int(steps * dt),
+                dtype=dtype,
+                initialization={"type": "baroclinic"},
+                dycore_config=dycore_config, physics_config=physics_config)
+
+
+class Tap:
+    """Stands in for the physics driver's microphysics scheme and keeps the
+    last state it was given and the tendencies it returned."""
+
+    def __init__(self, scheme):
+        self.scheme = scheme
+        self.state = self.out = None
+
+    def __call__(self, state):
+        self.state, self.out = state, self.scheme(state)
+        return self.out
+
+
+def column_water(state, sizing):
+    """Per column of the compute domain, sum over k of delp * (vapour +
+    condensates), float64."""
+    h, n = sizing.halo, sizing.n
+    q = sum(getattr(state, name).double() for name in WATER)
+    return (state.delp.double() * q)[:, h:h + n, h:h + n].sum(-1)
+
+
+def check_water_budget(tag, driver, before, label):
+    """One physics half from `before`: the water that left the columns is
+    the precipitation the microphysics reported, to float32 round-off of
+    the columns' water."""
+    sizing = driver.state.sizing
+    h, n = sizing.halo, sizing.n
+    tap = driver.physics._microphysics
+    after = driver.physics_step(before)
+    convt = 86400.0 / driver.config.dt_atmos / 9.80665
+    precip = sum(tap.out[k].double() for k in ("rain", "snow", "ice",
+                                               "graupel")) / convt
+    precip = precip[:, h:h + n, h:h + n]
+    w0, w1 = column_water(before, sizing), column_water(after, sizing)
+    resid = float((w1 - w0 + precip).abs().max())
+    scale = float(w0.abs().max())
+    bar = 2e-6 * scale
+    ok = resid <= bar
+    log(f"[{tag}] water budget of the physics half ({label}): columns hold "
+        f"up to {scale:.4e} Pa of water, precipitation up to "
+        f"{float(precip.max()):.4e} Pa a step, largest |change + "
+        f"precipitation| {resid:.3e} Pa (bar 2e-6 of the columns' water: "
+        f"{bar:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"water budget ({label}): {resid} > {bar}")
+    return after, float(precip.max())
+
+
+def run_coupled(card) -> dict:
+    """Phase 7.  Returns the launch counts of the timed and warm-up steps."""
+    import dataclasses
+
+    from pace_torch.driver import Driver
+
+    t0 = time.perf_counter()
+    warmup, timed = 1, 3
+    driver = Driver.from_dict(
+        driver_config(48, "float32", 225.0, **COUPLED, steps=timed))
+    driver.physics._microphysics = Tap(driver.physics._microphysics)
+    sizing = driver.state.sizing
+    h, n = sizing.halo, sizing.n
+    state0 = driver.state.dycore_state
+    torch.cuda.synchronize()
+    log(f"[7] Driver C48/79 float32 dt=225 k_split=1 n_split=2 do_sat_adj "
+        f"fv_sg_adj=3600 n_sponge=48 gfdl mp_time=225: set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    reset_launches()
+    for _ in range(warmup):
+        driver.step()
+    torch.cuda.synchronize()
+    # the entry point's own time: step_all takes the configuration's
+    # `timed` steps and ends in a synchronize
+    t0 = time.perf_counter()
+    driver.step_all()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    # the two halves, composed as Driver.step composes them, by CUDA events
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(2 * timed + 1)]
+    marks[0].record()
+    for i in range(timed):
+        state = driver.dycore.step_dynamics(driver.state.dycore_state)
+        marks[2 * i + 1].record()
+        driver.state.dycore_state = driver.physics_step(state)
+        marks[2 * i + 2].record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    dyn_ms = sum(marks[2 * i].elapsed_time(marks[2 * i + 1])
+                 for i in range(timed)) / timed
+    phy_ms = sum(marks[2 * i + 1].elapsed_time(marks[2 * i + 2])
+                 for i in range(timed)) / timed
+
+    state = driver.state.dycore_state
+    check_finite(7, state, sizing)
+    pt = state.pt[:, h:h + n, h:h + n]
+    delp = state.delp[:, h:h + n, h:h + n]
+    lo, hi, dpmin = float(pt.min()), float(pt.max()), float(delp.min())
+    ok = 150.0 < lo and hi < 350.0 and dpmin > 0.0
+    log(f"[7] pt in [{lo:.2f}, {hi:.2f}] K (bar 150-350), min delp "
+        f"{dpmin:.3f} Pa (bar > 0) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"coupled C48: pt [{lo}, {hi}], delp {dpmin}")
+    check_launches(7, launches, driver.config.dycore_config,
+                   warmup + 2 * timed)
+
+    # the water budget, on the run's own state and from a moistened start
+    # (the baroclinic wave starts below saturation and does not rain)
+    check_water_budget(7, driver, driver.dycore.step_dynamics(state),
+                       "the run's state")
+    wet = dataclasses.replace(state0, qvapor=state0.qvapor * 1.5)
+    _, rained = check_water_budget(
+        7, driver, driver.dycore.step_dynamics(wet), "vapour x 1.5")
+    if not rained > 0.0:
+        raise AssertionError("the moistened start did not rain")
+    log(f"[7] info: {ms:.3f} ms/step ({225.0 / (ms / 1e3):.1f} sim-days/day; "
+        f"Driver.step_all over {timed} steps after {warmup} warm-up); in "
+        f"{timed} more steps taken as two halves, dycore half {dyn_ms:.3f} "
+        f"ms, physics half {phy_ms:.3f} ms (CUDA events) on {card}")
+    return launches
+
+
+def check_card_against_cpu():
+    """Phase 7b."""
+    import dataclasses
+
+    from pace_torch.driver import Driver
+
+    config = driver_config(12, "float64", 225.0, **COUPLED)
+    card, cpu = Driver.from_dict(config), Driver.from_dict(config, "cpu")
+    h, n = 3, 12
+    for factor, label in ((1.0, "baroclinic"), (1.5, "vapour x 1.5")):
+        outs = []
+        for driver in (card, cpu):
+            s0 = driver.state.dycore_state
+            s0 = dataclasses.replace(s0, qvapor=s0.qvapor * factor)
+            outs.append(driver.physics_step(driver.dycore.step_dynamics(s0)))
+        errs = {}
+        for f in dataclasses.fields(outs[0]):
+            g = getattr(outs[0], f.name)[:, h:h + n, h:h + n].cpu()
+            r = getattr(outs[1], f.name)[:, h:h + n, h:h + n]
+            errs[f.name] = float((g - r).abs().max()) / (
+                float(r.abs().max()) + 1e-30)
+        worst = max(errs, key=errs.get)
+        ok = errs[worst] <= 1e-9
+        log(f"[7b] C12/79 float64 coupled step ({label}), card against CPU: "
+            f"worst field {worst} rel err {errs[worst]:.3e} (bar 1e-9) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"card vs CPU ({label}): {worst} "
+                                 f"{errs[worst]}")
+
+
+def run_emulator(card) -> None:
+    """Phase 8."""
+    from pace_torch.driver import Driver
+    from pace_torch.models.physics import emulator
+
+    hidden = (256, 256, 256)
+    # seeded He weights; the output layer, zero when drawn, made small and
+    # non-zero so that the network does work
+    params = emulator._init_params(
+        emulator.MLPEmulatorConfig(hidden_sizes=hidden, seed=11), 79)
+    generator = torch.Generator().manual_seed(12)
+    last = f"w{len(hidden)}"
+    params[last] = 0.05 * torch.randn(params[last].shape,
+                                      generator=generator)
+    path = os.path.join(REPO, "build", "chip_smoke_emulator.npz")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    emulator.save_params(params, path)
+
+    t0 = time.perf_counter()
+    driver = Driver.from_dict(driver_config(
+        96, "float32", 150.0, dict(do_sat_adj=True, **SHIELD),
+        dict(dt_atmos=150, mp_time=150, microphysics_scheme="emulator",
+             emulator=dict(hidden_sizes=list(hidden), weights_path=path))))
+    sizing = driver.state.sizing
+    torch.cuda.synchronize()
+    log(f"[8] Driver C96/79 float32 dt=150 k_split=2 n_split=3 hord 8 "
+        f"hord_tr 10 do_sat_adj emulator {list(hidden)} bfloat16: set-up "
+        f"{time.perf_counter() - t0:.2f} s")
+    warmup, timed = 1, 2
+    reset_launches()
+    driver.step()
+    tap = Tap(driver.physics._microphysics)
+    driver.physics._microphysics = tap
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        driver.step()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    launches = read_launches()
+    check_finite(8, driver.state.dycore_state, sizing)
+    check_launches(8, launches, driver.config.dycore_config, warmup + timed)
+
+    h, n = sizing.halo, sizing.n
+    total = sum(tap.out[k].double() for k in emulator.WATER_TENDENCIES)
+    weighted = (total * tap.state.delp.double())[:, h:h + n, h:h + n]
+    net = float(weighted.sum(-1).abs().max())
+    gross = float(weighted.abs().sum(-1).max())
+    moved = float(tap.out["pt_dt"].abs().max())
+    ok = net <= 1e-5 * gross and gross > 0.0 and moved > 0.0
+    log(f"[8] emulator water conservation: largest |column sum of delp x "
+        f"water tendencies| {net:.3e} against {gross:.3e} gross (bar 1e-5), "
+        f"largest |pt_dt| {moved:.3e} K/s (bar > 0) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"emulator conservation: {net} vs {gross}")
+    log(f"[8] info: {ms:.3f} ms/step, {150.0 / (ms / 1e3):.1f} sim-days/day "
+        f"({timed} steps after {warmup} warm-up) on {card}")
 
 
 KERNELS = {
@@ -454,11 +721,17 @@ def main() -> None:
 
     # ---- phase 6: the production configuration of bench.py
     run_path(6, 48, 450.0, 1, 2, card, k_split=2, n_split=6)
-    log(f"[6] all phases took {time.perf_counter() - started:.0f} s")
+
+    # ---- phases 7, 7b, 8: the coupled step
+    coupled = run_coupled(card)
+    check_card_against_cpu()
+    run_emulator(card)
+    log(f"[8] all phases took {time.perf_counter() - started:.0f} s")
 
     kernels = [
         dict(**KERNELS[k], route="cuda", launches=launches[k],
-             max_abs_err=results[k][0], ms=results[k][1],
+             launches_coupled=coupled[k], max_abs_err=results[k][0],
+             ms=results[k][1],
              plain_ms=results[k][2], bound_ms=results[k][3],
              bound_by=results[k][4], library_ms=None)
         for k in ("K-T", "K-S", "K-F")

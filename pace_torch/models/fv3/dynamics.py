@@ -20,6 +20,7 @@ from pace_torch.models.fv3 import acoustics
 from pace_torch.models.fv3.config import DynamicalCoreConfig, get_column_namelist
 from pace_torch.models.fv3.state import NQ, TRACER_NAMES, DycoreState
 from pace_torch.ops import c2l_ord, moist_cv, neg_adj3, remapping
+from pace_torch.ops import saturation_adjustment as satadj
 from pace_torch.ops import tracer_advection as tradv
 from pace_torch.ops.del2cubed import hyperdiffusion
 from pace_torch.parallel import halo as halo_mod
@@ -37,8 +38,6 @@ class DynamicalCore:
             raise NotImplementedError("hydrostatic mode is not implemented")
         if config.consv_te > 0:
             raise NotImplementedError("consv_te > 0 needs a global reduction")
-        if config.do_sat_adj:
-            raise NotImplementedError("do_sat_adj is not ported")
         if config.dynamic_tracer_subcycle:
             raise NotImplementedError("dynamic_tracer_subcycle is not ported")
         self.config = config
@@ -98,14 +97,24 @@ def _phase_tracer_advection(s: dict, dp_initial, gd, topo, n: int, h: int,
 
 
 def _phase_remap(s: dict, cappa, wsd, gd, config: DynamicalCoreConfig,
-                 topo, n: int, h: int, last_step: bool, mdt: float):
+                 topo, n: int, h: int, last_step: bool, mdt: float,
+                 vp: dict):
     """Vertical remapping + (last step) omega."""
     tracers = {name: s[name] for name in remapping.REMAP_TRACERS}
+    sat_fn = None
+    if config.do_sat_adj:
+        def sat_fn(dp1_b, trc, hs, peln, delp, delz, q_con_, pt, pkz_,
+                   cappa_, zvir, mdt_, last_step_, akap):
+            return satadj.saturation_adjustment(
+                dp1_b, trc, hs, peln, delp, delz, q_con_, pt, pkz_,
+                cappa_, zvir, mdt_, last_step_, akap, gd, config, n, h,
+                vp=vp,
+            )
     out = remapping.lagrangian_to_eulerian(
         tracers, s["pt"], s["delp"], s["delz"], s["peln"], s["u"],
         s["v"], s["w"], cappa, s["q_con"], s["pkz"], s["pk"], s["pe"],
         s["phis"], s["ps"], wsd, gd, config, n, h, last_step,
-        config.consv_te, mdt,
+        config.consv_te, mdt, do_sat_adj_fn=sat_fn,
     )
     s.update(out["tracers"])
     for name in ("pt", "delp", "delz", "peln", "u", "v", "w", "q_con",
@@ -158,5 +167,5 @@ def fv_dynamics(
         )
         s = _phase_tracer_advection(s, dp_initial, gd, topo, n, h, config)
         s, cappa = _phase_remap(s, cappa, wsd, gd, config, topo, n, h,
-                                k_loop == k_split - 1, mdt)
+                                k_loop == k_split - 1, mdt, vp)
     return _postlude(s, gd, topo, n, h, config)

@@ -29,11 +29,9 @@ REMAP_TRACERS = (
 def lagrangian_to_eulerian(
     tracers: dict, pt, delp, delz, peln, u, v, w, cappa, q_con, pkz, pk, pe,
     hs, ps, wsd, gd, config, n, h, last_step: bool, consv_te: float,
-    mdt: float,
+    mdt: float, do_sat_adj_fn=None,
 ):
     """Returns a dict of the updated fields."""
-    if config.do_sat_adj:
-        raise NotImplementedError("do_sat_adj is not ported")
     akap = constants.KAPPA
     zvir = constants.ZVIR
     ptop = gd.vertical.ptop
@@ -42,6 +40,8 @@ def lagrangian_to_eulerian(
     nz = pt.shape[-1]
     kord_tm = abs(config.kord_tm)
     kord_tr = abs(config.kord_tr)
+
+    dp1_before = delp  # saved for saturation adjustment
 
     pe1 = pe
     # virtual temperature + condensate bookkeeping (moist_cv_pt_pressure)
@@ -125,6 +125,12 @@ def lagrangian_to_eulerian(
     dtmp = 0.0
     if last_step and abs(consv_te) > CONSV_MIN:
         raise NotImplementedError("consv_te > CONSV_MIN requires allreduce")
+
+    if config.do_sat_adj and do_sat_adj_fn is not None:
+        (tracers, q_con, pt, pkz, cappa, delp, delz, peln_new) = do_sat_adj_fn(
+            dp1_before, tracers, hs, peln_new, delp, delz, q_con, pt, pkz,
+            cappa, zvir, mdt, last_step, akap,
+        )
 
     if last_step:
         gz, pt = moist_cv.moist_pt_last_step(

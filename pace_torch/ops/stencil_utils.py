@@ -99,6 +99,41 @@ def sign(a, b):
     return torch.where(b > 0, torch.abs(a), -torch.abs(a))
 
 
+def maximum(a, b):
+    """Elementwise maximum where either argument may be a Python number
+    (NaN propagates from the tensor, as in `torch.maximum`)."""
+    if not isinstance(a, torch.Tensor):
+        a, b = b, a
+    if isinstance(b, torch.Tensor):
+        return torch.maximum(a, b)
+    return torch.clamp(a, min=b)
+
+
+def minimum(a, b):
+    """Elementwise minimum where either argument may be a Python number."""
+    if not isinstance(a, torch.Tensor):
+        a, b = b, a
+    if isinstance(b, torch.Tensor):
+        return torch.minimum(a, b)
+    return torch.clamp(a, max=b)
+
+
+def dim(a, b):
+    """Fortran DIM: max(a - b, 0)."""
+    return torch.clamp(a - b, min=0.0)
+
+
+def reverse_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """out[..., k] = sum of x[..., k:]."""
+    return torch.flip(torch.cumsum(torch.flip(x, (-1,)), -1), (-1,))
+
+
+def levels(a: torch.Tensor):
+    """A (..., nz) tensor as a tuple of its nz levels, each contiguous: what
+    a Python loop along k reads."""
+    return a.movedim(-1, 0).contiguous().unbind(0)
+
+
 def column(values, like: torch.Tensor) -> torch.Tensor:
     """A (nz,) numpy/list column as a (1, 1, 1, nz) tensor broadcasting
     against `like` (same device and dtype)."""

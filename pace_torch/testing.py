@@ -1,20 +1,41 @@
-"""Seeded numpy inputs for checking each kernel against its plain version.
+"""Seeded numpy inputs for checking each kernel against its plain version
+and each physics module against the reference package's.
 
-The generators follow the reference package's kernel tests
-(tests/test_pallas_transport.py, test_sim1_pallas.py, test_fillz_pallas.py)
-and return numpy arrays, so the CPU tests can hand the same inputs to both
-packages and the card checks can move them to the device.
+The generators follow the reference package's tests
+(tests/test_pallas_transport.py, test_sim1_pallas.py, test_fillz_pallas.py,
+test_microphysics.py, test_fv_subgridz.py) and return numpy arrays, so the
+CPU tests can hand the same inputs to both packages and the card checks can
+move them to the device.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
+import torch
 
 from pace_torch.grid.generation import grid_arrays_numpy
+from pace_torch.ops.fv_subgridz import TRACERS as SUBGRIDZ_TRACERS
 from pace_torch.parallel.topology import get_topology
+from pace_torch.utils import constants as con
 
 TRANSPORT_KEYS = ("q_y", "q_x", "crx", "cry", "xfx", "yfx", "xmf", "ymf",
                   "dxa", "dya", "area")
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run a block with torch's CPU thread count set to `n`.  The level
+    loops of the physics issue thousands of small operations; with several
+    test workers on one machine the default of one thread a core
+    oversubscribes it many times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)
 
 
 def _smooth(rng, shape, scale):
@@ -113,6 +134,81 @@ def plant_fillz_hazards(q, dp):
         else:
             qc[rng.randint(T), col, k] = value
     return q, dp
+
+
+def microphysics_inputs(shape=(4, 3, 24), seed: int = 3, supersat_k=None,
+                        cold: bool = False) -> dict:
+    """A MicrophysicsState's fields as float64 numpy: a sounding from 200 to
+    1000 hPa and 215 to 300 K with per-column perturbations, vapour at 0.8
+    of saturation (1.3 at level `supersat_k`), cloud water and rain in the
+    warm layers and cloud ice, snow and graupel in the cold ones, a few
+    negative condensates for the fixer, land fraction 0 or 1 by column.
+    `cold` makes every layer subfreezing and fills it with supercooled
+    rain."""
+    rng = np.random.default_rng(seed)
+    nz = shape[-1]
+    p_mid = np.linspace(2.0e4, 1.0e5, nz)
+    dp = np.gradient(p_mid) * rng.uniform(0.95, 1.05, shape)
+    t = np.linspace(215.0, 300.0, nz) + rng.uniform(-3.0, 3.0, shape)
+    if cold:
+        t = np.minimum(t, 258.0 + rng.uniform(-2.0, 2.0, shape))
+    rho = p_mid / (con.RDGAS * t)
+    dz = -dp / (con.GRAV * rho)
+    es = con.E00 * np.exp(
+        (con.DC_VAP * np.log(t / con.TICE)
+         + con.LV0 * (t - con.TICE) / (t * con.TICE)) / con.RVGAS)
+    qsat = es / (con.RVGAS * t * rho)
+    qv = 0.8 * qsat
+    if supersat_k is not None:
+        qv[..., supersat_k] = 1.3 * qsat[..., supersat_k]
+    warm, frozen = t > 273.16, t < 260.0
+    ql = np.where(warm, 1.2e-4, 0.0) * rng.uniform(0.5, 1.5, shape)
+    qr = np.where(warm, 8.0e-5, 0.0) * rng.uniform(0.5, 1.5, shape)
+    qi = np.where(frozen, 5.0e-5, 0.0) * rng.uniform(0.5, 1.5, shape)
+    qs = np.where(frozen, 2.0e-5, 0.0) * rng.uniform(0.5, 1.5, shape)
+    qg = np.where(frozen, 1.0e-5, 0.0) * rng.uniform(0.5, 1.5, shape)
+    if cold:
+        qr = 2.0e-4 * rng.uniform(0.5, 1.5, shape)
+    for q in (ql, qr, qi, qs, qg):
+        q[rng.uniform(size=shape) < 0.03] = -1.0e-7
+    return dict(
+        pt=t, qvapor=qv, qliquid=ql, qrain=qr, qice=qi, qsnow=qs,
+        qgraupel=qg, qcld=np.zeros(shape),
+        ua=5.0 + rng.standard_normal(shape),
+        va=-3.0 + rng.standard_normal(shape),
+        delp=dp, delz=dz, omga=np.zeros(shape), delprsi=dp,
+        wmp=0.01 * rng.standard_normal(shape), dz=dz,
+        land=(rng.uniform(size=shape[:-1]) < 0.5).astype(np.float64),
+    )
+
+
+def subgridz_inputs(unstable: bool = True, shape=(3, 2, 30),
+                    seed: int = 5) -> dict:
+    """The fields `dry_convective_adjustment` reads, float64 numpy: a column
+    whose potential temperature falls with height (warm under cold air:
+    convectively unstable) or rises with it, sheared winds and small random
+    tracers, perturbed per column."""
+    rng = np.random.default_rng(seed)
+    nz = shape[-1]
+    p_mid = np.linspace(1.0e3, 9.5e4, nz)
+    dp = np.gradient(p_mid) * rng.uniform(0.95, 1.05, shape)
+    theta = (np.linspace(340.0, 420.0, nz) if unstable
+             else np.linspace(420.0, 340.0, nz))
+    theta = theta + rng.uniform(-2.0, 2.0, shape)
+    pkz = (p_mid / 1.0e5) ** con.KAPPA * np.ones(shape)
+    t = theta * pkz
+    rho = p_mid / (con.RDGAS * t)
+    dz = -dp / (con.GRAV * rho)
+    pe = np.concatenate(
+        [np.full(shape[:-1] + (1,), 500.0), 500.0 + np.cumsum(dp, -1)], -1)
+    s = dict(
+        pt=t, delp=dp, delz=dz, pkz=pkz, peln=np.log(pe), pe=pe,
+        ua=np.linspace(30.0, -5.0, nz) + rng.standard_normal(shape),
+        va=rng.standard_normal(shape), w=0.1 * rng.standard_normal(shape),
+    )
+    for name in SUBGRIDZ_TRACERS:
+        s[name] = 1.0e-5 * rng.uniform(0.0, 1.0, shape)
+    return s
 
 
 def state_digest(state, sizing) -> dict:

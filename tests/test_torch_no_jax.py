@@ -1,13 +1,20 @@
 """The port needs no JAX: with `jax` made unimportable, a fresh interpreter
-imports every module of pace_torch, builds the C12 grid and initial state
-and runs one dycore step on the CPU; nothing of the reference package is
-imported on the way."""
+imports every module of pace_torch (the physics, coupler and driver
+packages among them), builds the C12 grid and initial state, runs one
+dycore step and one coupled `Driver` step on the CPU; nothing of the
+reference package is imported on the way.  And the port's entry points
+run on the card unless the caller asks for the CPU: read from their
+signatures, and tried where there is no card."""
 
+import inspect
 import os
 import pathlib
 import re
 import subprocess
 import sys
+
+import pytest
+import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -17,8 +24,18 @@ sys.modules["jax"] = None          # any `import jax` now raises ImportError
 import torch
 torch.set_num_threads(2)
 import pace_torch
-for mod in pkgutil.walk_packages(pace_torch.__path__, "pace_torch."):
-    importlib.import_module(mod.name)
+walked = [mod.name for mod in
+          pkgutil.walk_packages(pace_torch.__path__, "pace_torch.")]
+for name in walked:
+    importlib.import_module(name)
+for name in ("ops.saturation_adjustment", "ops.fv_subgridz",
+             "models.physics.microphysics", "models.physics.physics",
+             "models.physics.emulator", "models.physics.physics_state",
+             "models.physics.config", "models.coupler.update_atmos_state",
+             "models.coupler.fv_update_phys",
+             "models.coupler.update_dwind_phys", "driver.driver",
+             "driver.initialization", "driver.state", "driver._from_dict"):
+    assert "pace_torch." + name in walked, name
 from pace_torch.grid.generation import generate_grid_data
 from pace_torch.models.fv3.config import DynamicalCoreConfig
 from pace_torch.models.fv3.dynamics import DynamicalCore
@@ -31,6 +48,17 @@ state = core.step_dynamics(init_baroclinic_state(
     sizing, device="cpu", dtype=torch.float32))
 h = sizing.halo
 assert bool(torch.isfinite(state.pt[:, h:h + 12, h:h + 12]).all())
+from pace_torch.driver import Driver
+driver = Driver.from_dict(dict(
+    nx_tile=12, nz=79, dt_atmos=225, seconds=225, dtype="float32",
+    initialization={"type": "baroclinic"},
+    dycore_config=dict(do_sat_adj=True, fv_sg_adj=3600, n_sponge=48),
+    physics_config=dict(dt_atmos=225, mp_time=225)), device="cpu")
+driver.step_all()
+coupled = driver.state.dycore_state
+for name in ("pt", "delp", "qvapor", "u", "v", "w"):
+    assert bool(torch.isfinite(
+        getattr(coupled, name)[:, h:h + 12, h:h + 12]).all()), name
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "pace_tpu")]
 assert sys.modules["jax"] is None and loaded == ["jax"], loaded
 print("NO_JAX_OK")
@@ -51,3 +79,59 @@ def test_port_sources_never_import_jax():
         REPO / "chip_smoke.py"]
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def _entry_points():
+    from pace_torch.driver import Driver
+    from pace_torch.models.coupler import (
+        DycoreToPhysics,
+        UpdateAtmosphereState,
+    )
+    from pace_torch.models.coupler.update_atmos_state import interior_mask
+    from pace_torch.models.physics.emulator import MicrophysicsEmulator
+    from pace_torch.models.physics.microphysics import Microphysics
+    from pace_torch.models.physics.physics import Physics
+    from pace_torch.models.physics.physics_state import PhysicsState
+
+    return [Driver, Driver.from_dict, Physics, Microphysics,
+            MicrophysicsEmulator, DycoreToPhysics, UpdateAtmosphereState,
+            interior_mask, PhysicsState.init_zeros]
+
+
+@pytest.mark.parametrize("index", range(9))
+def test_new_entry_points_default_to_the_card(index):
+    """The driver, the physics and the coupler are built on the card unless
+    the caller asks for the CPU (read from the signature; needs no card)."""
+    entry = _entry_points()[index]
+    assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_entry_points_raise_without_a_card():
+    """Where there is no card, the defaults raise; nothing carries on on
+    the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    from pace_torch.driver import Driver
+    from pace_torch.models.coupler import DycoreToPhysics
+    from pace_torch.models.physics.config import PhysicsConfig
+    from pace_torch.models.physics.emulator import (
+        MicrophysicsEmulator,
+        MLPEmulatorConfig,
+    )
+    from pace_torch.models.physics.microphysics import Microphysics
+    from pace_torch.models.physics.physics import Physics
+    from pace_torch.utils.gridtools import GridSizing
+
+    area = torch.full((2, 2), 1.0e10)
+    config = dict(nx_tile=12, nz=79, dt_atmos=225,
+                  initialization={"type": "baroclinic"})
+    for build in (
+            lambda: Driver.from_dict(config),
+            lambda: Physics(PhysicsConfig(), area, 300.0, 225.0),
+            lambda: Physics(PhysicsConfig(microphysics_scheme="emulator"),
+                            area, 300.0, 225.0),
+            lambda: Microphysics(PhysicsConfig(), area, 225.0),
+            lambda: MicrophysicsEmulator(MLPEmulatorConfig(), 8),
+            lambda: DycoreToPhysics(GridSizing(12, 79))):
+        with pytest.raises((RuntimeError, AssertionError)):
+            build()
