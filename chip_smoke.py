@@ -37,7 +37,19 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      the dycore settings of examples/configs/c384_multihost_emulator.yaml
      and C96/79 float32, with seeded weights and a non-zero output layer:
      one warm-up and two timed steps, finite interiors, exact launch
-     counts and the emulator's water conservation.
+     counts and the emulator's water conservation;
+  9. the yaml entry point, `pace_torch.driver.run.main`, on copies of the
+     example configurations (only output paths, run length and, where
+     stated, the restart section changed): baroclinic_c12.yaml on the card
+     and on the CPU (restarts within 1e-9) and for one step with a Chrome
+     trace (profile_dir) that holds every kernel launch,
+     baroclinic_c12_coupled.yaml,
+     c48_sections_perf.yaml with a step-3 restart that a second run
+     continues to the same final state bit for bit,
+     c96_baroclinic_shield.yaml, tropical_cyclone_c48.yaml cut to 4 steps
+     (vortex checks), and c384_multihost_emulator.yaml, whose 96-device
+     mesh the Driver refuses; each run's diagnostics, perf JSON, restart,
+     safety checks and exact launch counts.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -50,6 +62,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -663,6 +676,360 @@ def run_emulator(card) -> None:
         f"({timed} steps after {warmup} warm-up) on {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the yaml entry point, python -m pace_torch.driver.run
+# ---------------------------------------------------------------------------
+
+EXAMPLES = os.path.join(REPO, "examples", "configs")
+
+
+def yaml_copy(name, work, profile=False, **changes) -> str:
+    """A copy of examples/configs/<name> in `work` whose diagnostics and
+    restart paths point into `work`, with `changes` (run length, restart
+    section, start) applied and, with `profile`, a Chrome trace written to
+    `work`/prof; returns its path."""
+    import yaml
+
+    with open(os.path.join(EXAMPLES, name)) as f:
+        config = yaml.safe_load(f)
+    config.update(changes)
+    os.makedirs(work)
+    if profile:
+        config["performance_config"]["profile_dir"] = os.path.join(work,
+                                                                   "prof")
+    if config.get("diagnostics_config", {}).get("path"):
+        config["diagnostics_config"]["path"] = os.path.join(work, "output")
+    if "restart_config" in config:
+        config["restart_config"]["path"] = os.path.join(work, "RESTART")
+    path = os.path.join(work, name)
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f)
+    return path
+
+
+def run_cli(path, device="cuda") -> dict:
+    """`pace_torch.driver.run.main` on `path` from its directory (the perf
+    JSON lands there), launch counts set to 0 just before and read just
+    after.  Returns the launch counts."""
+    from pace_torch.driver.run import main
+
+    here = os.getcwd()
+    os.chdir(os.path.dirname(path))
+    try:
+        reset_launches()
+        rc = main([path, "--log-level", "WARNING", "--device", device])
+        launches = read_launches()
+    finally:
+        os.chdir(here)
+    if rc != 0:
+        raise AssertionError(f"{path}: exit code {rc}")
+    return launches
+
+
+def diagnostics_records(config) -> list:
+    """Every record of the run's diagnostics as {name: array}, read back
+    from their npz files or Zarr store (the formats the example
+    configurations use)."""
+    from pace_torch.utils.zarrlite import read_zarr_array
+
+    diag = config.diagnostics_config
+    if diag.path is None or not (diag.names or diag.derived_names):
+        return []
+    if diag.output_format == "zarr":
+        store = os.path.join(diag.path, "state.zarr")
+        arrays = {name: read_zarr_array(os.path.join(store, name))
+                  for name in os.listdir(store) if name != "time"
+                  and os.path.isdir(os.path.join(store, name))}
+        n = len(next(iter(arrays.values())))
+        return [{k: v[i] for k, v in arrays.items()} for i in range(n)]
+    records = []
+    for fname in sorted(os.listdir(diag.path)):
+        if fname.startswith("state_"):
+            with np.load(os.path.join(diag.path, fname)) as data:
+                records.append({k: data[k] for k in data.files
+                                if k != "time"})
+    return records
+
+
+def check_yaml_run(path, launches, card, sections=False) -> dict:
+    """The checks every phase-9 run passes: finite diagnostics in their
+    format, a perf JSON with SYPD > 0 (and, with sections, each section's
+    time > 0 and their sum within the step's), the restart where one is
+    configured, the exact launch counts.  Logs ms/step, SYPD,
+    sim-days/day, launches a step and the files written; returns the
+    perf report."""
+    from pace_torch.driver.driver import DriverConfig
+
+    config = DriverConfig.from_yaml(path)
+    name = os.path.basename(path)
+    steps = config.n_timesteps()
+    work = os.path.dirname(path)
+    records = diagnostics_records(config)
+    expect = steps // config.diagnostics_config.output_frequency + int(
+        config.diagnostics_config.output_initial_state)
+    if config.diagnostics_config.names and len(records) != expect:
+        raise AssertionError(f"{name}: {len(records)} diagnostics records, "
+                             f"expected {expect}")
+    for record in records:
+        for key, value in record.items():
+            if not np.isfinite(value).all():
+                raise AssertionError(f"{name}: diagnostic {key} not finite")
+    with open(os.path.join(
+            work, f"{config.performance_config.experiment_name}_perf.json")
+            ) as f:
+        report = json.load(f)
+    times = report["times_per_step"]
+    if len(times) != steps or not report["sypd"] > 0.0:
+        raise AssertionError(f"{name}: {len(times)} steps timed, SYPD "
+                             f"{report['sypd']}")
+    if sections:
+        keys = ["DynCore", "TracerAdvection", "Remapping"]
+        if not config.dycore_only:
+            keys.append("Physics")
+        for t in times:
+            parts = [t.get(k, 0.0) for k in keys]
+            if min(parts) <= 0.0 or sum(parts) > t["mainloop"]:
+                raise AssertionError(f"{name}: sections {t}")
+        share = sum(sum(t[k] for k in keys) for t in times[1:]) / sum(
+            t["mainloop"] for t in times[1:])
+        log(f"[9] {name}: sections "
+            + ", ".join(f"{k} {np.mean([t[k] for t in times[1:]]) * 1e3:.3f}"
+                        for k in keys)
+            + f" ms/step, {share:.4f} of mainloop")
+    if config.restart_config.save_restart:
+        from pace_torch.driver.restart import load_restart_arrays
+
+        arrays = load_restart_arrays(config.restart_config.path)
+        if len(arrays) != 32:
+            raise AssertionError(f"{name}: restart holds {len(arrays)}")
+    check_launches(9, launches, config.dycore_config, steps)
+    ms = float(np.mean([t["mainloop"] for t in times[1:]])) * 1e3
+    files = [os.path.relpath(os.path.join(d, f), work)
+             for d, _, fs in os.walk(work) for f in fs]
+    nbytes = sum(os.path.getsize(os.path.join(work, f)) for f in files)
+    tops = sorted({f.split(os.sep)[0] + ("/" if os.sep in f else "")
+                   for f in files})
+    log(f"[9] {name}: {steps} steps, {ms:.3f} ms/step (mainloop without "
+        f"step 1), SYPD {report['sypd']:.4f}, "
+        f"{config.dt_atmos / (ms / 1e3):.1f} sim-days/day, launches a step "
+        + "/".join(str(launches[k] // steps) for k in ("K-T", "K-S", "K-F"))
+        + f", initialization {report['total_times']['initialization']:.2f} "
+        f"s, "
+        + (f"safety checks every {config.safety_check_frequency} steps "
+           "passed" if config.safety_check_frequency else "no safety checks")
+        + f"; wrote {len(files)} files, {nbytes / 1e6:.1f} MB: "
+        + ", ".join(tops) + f" on {card}")
+    return report
+
+
+KERNEL_SYMBOLS = {"K-T": "transport_kernel", "K-S": "sim1_kernel",
+                  "K-F": "fillz_kernel"}
+
+
+def check_trace(path, launches) -> None:
+    """The run's Chrome trace (performance_config.profile_dir) holds one
+    device kernel event per launch of each hand-written kernel."""
+    from pace_torch.driver.driver import DriverConfig
+
+    config = DriverConfig.from_yaml(path)
+    trace = os.path.join(config.performance_config.profile_dir, "trace.json")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(symbol in e.get("name", "") for e in kernels)
+             for k, symbol in KERNEL_SYMBOLS.items()}
+    busy = sum(e.get("dur", 0.0) for e in kernels) / 1e3
+    ok = found == launches
+    log(f"[9] profile_dir: {os.path.getsize(trace) / 1e6:.1f} MB Chrome "
+        f"trace of {config.n_timesteps()} step(s), {len(kernels)} device "
+        f"kernel events ({busy:.3f} ms busy), of them K-T/K-S/K-F "
+        + "/".join(str(found[k]) for k in KERNEL_SYMBOLS)
+        + " (launches counted " + "/".join(str(launches[k])
+                                            for k in KERNEL_SYMBOLS)
+        + f") {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"trace kernels {found} != launches {launches}")
+    check_launches(9, launches, config.dycore_config, config.n_timesteps())
+
+
+def interior_error(got: dict, ref: dict, n: int, h: int = 3) -> tuple:
+    """(worst field, its largest |got - ref| over the compute domain
+    relative to the field's scale there)."""
+    errs = {}
+    for name, r in ref.items():
+        g, r = got[name], r
+        if r.ndim >= 3:
+            g, r = g[:, h:h + n, h:h + n], r[:, h:h + n, h:h + n]
+        errs[name] = float(np.abs(g.astype(np.float64) - r).max()) / (
+            float(np.abs(r).max()) + 1e-30)
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def vortex(ps, pt, lon, lat, area) -> tuple:
+    """(the minimum's distance from the vortex centre (180E, 10N) in m, the
+    width of its cell in m, pt at level 60 there, the median pt at level
+    60) over compute-domain arrays."""
+    from pace_torch.models.fv3.init.tropical_cyclone import TC
+
+    lon0, lat0 = np.deg2rad(TC["lon_tc"]), np.deg2rad(TC["lat_tc"])
+    dist = 6.3712e6 * np.arccos(np.clip(
+        np.sin(lat) * np.sin(lat0)
+        + np.cos(lat) * np.cos(lat0) * np.cos(lon - lon0), -1.0, 1.0))
+    at = np.unravel_index(np.argmin(ps), ps.shape)
+    return (float(dist[at]), float(np.sqrt(area[at])),
+            float(pt[at + (60,)]), float(np.median(pt[..., 60])))
+
+
+def check_tc_vortex(path) -> None:
+    """The checks of tests/test_tropical_cyclone.py on the start the run
+    takes (init_tc_state on the card, C48/79 float32): a dp-deep
+    surface-pressure minimum, p_ref far away, a warm core at level 60;
+    then on the run's last diagnostics: the minimum still in the cell
+    nearest the vortex centre (or a neighbour), at least dp / 4 below the
+    median surface pressure, over a warm core."""
+    from pace_torch.driver.driver import DriverConfig
+    from pace_torch.models.fv3.init.tropical_cyclone import TC, init_tc_state
+    from pace_torch.utils.gridtools import GridSizing
+
+    config = DriverConfig.from_yaml(path)
+    n, h = config.nx_tile, 3
+    c = (slice(None), slice(h, h + n), slice(h, h + n))
+    with np.load(os.path.join(config.diagnostics_config.path,
+                              "grid.npz")) as grid:
+        lon, lat, area = (grid[k][c] for k in ("lon_agrid", "lat_agrid",
+                                                "area"))
+    start = init_tc_state(GridSizing(n, config.nz))
+    ps0, pt0 = start.ps[c].cpu().numpy(), start.pt[c].cpu().numpy()
+    last = diagnostics_records(config)[-1]
+    ps, pt = last["ps"], last["pt"]
+    lo, hi = TC["p_ref"] - TC["dp"] - 50.0, TC["p_ref"] - 500.0
+    d0, cell0, core0, far0 = vortex(ps0, pt0, lon, lat, area)
+    d1, cell1, core1, far1 = vortex(ps, pt, lon, lat, area)
+    dip, bar = float(np.median(ps) - ps.min()), TC["dp"] / 4
+    ok0 = (lo < ps0.min() < hi and abs(ps0.max() - TC["p_ref"]) < 50.0
+           and d0 < 1.5 * cell0 and core0 > far0)
+    ok1 = d1 < 1.5 * cell1 and dip > bar and core1 > far1
+    log(f"[9] tropical cyclone start: ps {ps0.min():.2f}-{ps0.max():.2f} Pa "
+        f"(bars {lo:g}-{hi:g} and p_ref +-50), minimum {d0 / 1e3:.1f} km "
+        f"from the centre (bar 1.5 cells = {1.5 * cell0 / 1e3:.1f} km), pt "
+        f"at level 60 {core0:.3f} K in the core against {far0:.3f} K "
+        f"median {'ok' if ok0 else 'FAIL'}")
+    log(f"[9] tropical cyclone after {config.n_timesteps()} steps: ps "
+        f"{ps.min():.2f}-{ps.max():.2f} Pa, minimum {dip:.2f} Pa below the "
+        f"median (bar dp / 4 = {bar:g}) and {d1 / 1e3:.1f} km from the "
+        f"centre (bar {1.5 * cell1 / 1e3:.1f} km), pt at level 60 "
+        f"{core1:.3f} K in the "
+        f"core against {far1:.3f} K median {'ok' if ok1 else 'FAIL'}")
+    if not (ok0 and ok1):
+        raise AssertionError("tropical cyclone structure")
+
+
+def run_yaml_configs(card) -> dict:
+    """Phase 9.  Returns each kernel's launches summed over the runs on the
+    card."""
+    import tempfile
+
+    from pace_torch.driver.driver import Driver, DriverConfig
+    from pace_torch.driver.restart import load_restart_arrays
+
+    total = dict.fromkeys(("K-T", "K-S", "K-F"), 0)
+
+    def on_card(path) -> dict:
+        launches = run_cli(path)
+        for k in total:
+            total[k] += launches[k]
+        return launches
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        # baroclinic_c12.yaml, whole (4 steps), on the card and the CPU
+        t0 = time.perf_counter()
+        paths = {dev: yaml_copy("baroclinic_c12.yaml",
+                                os.path.join(tmp, f"c12_{dev}"))
+                 for dev in ("cuda", "cpu")}
+        launches = on_card(paths["cuda"])
+        check_yaml_run(paths["cuda"], launches, card)
+        run_cli(paths["cpu"], device="cpu")
+        worst, err = interior_error(
+            *(load_restart_arrays(os.path.join(tmp, f"c12_{dev}", "RESTART"))
+              for dev in ("cuda", "cpu")), n=12)
+        log(f"[9] baroclinic_c12.yaml restart, card against CPU: worst "
+            f"field {worst} rel err {err:.3e} (bar 1e-9) "
+            f"{'ok' if err <= 1e-9 else 'FAIL'} "
+            f"({time.perf_counter() - t0:.1f} s both runs)")
+        if not err <= 1e-9:
+            raise AssertionError(f"c12 card vs CPU: {worst} {err}")
+
+        # the same yaml for one step with profile_dir: a Chrome trace
+        path = yaml_copy("baroclinic_c12.yaml",
+                         os.path.join(tmp, "c12_profiled"), profile=True,
+                         minutes=0, seconds=225)
+        check_trace(path, on_card(path))
+
+        # baroclinic_c12_coupled.yaml, whole (8 steps)
+        path = yaml_copy("baroclinic_c12_coupled.yaml",
+                         os.path.join(tmp, "c12_coupled"))
+        check_yaml_run(path, on_card(path), card)
+
+        # c48_sections_perf.yaml (6 steps) with a restart at step 3; then
+        # 3 steps from that restart reach the same final state
+        restart = dict(save_restart=True, intermediate_restart=[3])
+        path = yaml_copy("c48_sections_perf.yaml",
+                         os.path.join(tmp, "c48_sections"),
+                         restart_config=restart)
+        check_yaml_run(path, on_card(path), card, sections=True)
+        first = os.path.join(tmp, "c48_sections", "RESTART")
+        with open(os.path.join(first, "step_000003", "time.json")) as f:
+            start = json.load(f)["time"]
+        again = yaml_copy(
+            "c48_sections_perf.yaml", os.path.join(tmp, "c48_restarted"),
+            restart_config=dict(save_restart=True), minutes=0, seconds=1350,
+            initialization=dict(type="restart", config=dict(
+                path=os.path.join(first, "step_000003"),
+                start_time_str=start)))
+        check_yaml_run(again, on_card(again), card, sections=True)
+        a = load_restart_arrays(first)
+        b = load_restart_arrays(os.path.join(tmp, "c48_restarted",
+                                             "RESTART"))
+        same = sorted(a) == sorted(b) and all(
+            a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+            for k in a)
+        log(f"[9] c48_sections_perf.yaml: 3 steps from the step-3 restart "
+            f"against the 6-step run's final restart, {len(a)} fields "
+            f"element by element: {'identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError("restart round trip differs")
+
+        # c96_baroclinic_shield.yaml, whole (6 steps)
+        path = yaml_copy("c96_baroclinic_shield.yaml",
+                         os.path.join(tmp, "c96_shield"))
+        check_yaml_run(path, on_card(path), card)
+
+        # tropical_cyclone_c48.yaml, cut from 1 hour to 15 minutes (4 steps)
+        path = yaml_copy("tropical_cyclone_c48.yaml", os.path.join(tmp, "tc"),
+                         hours=0, minutes=15)
+        check_yaml_run(path, on_card(path), card)
+        check_tc_vortex(path)
+
+        # c384_multihost_emulator.yaml hydrates; the Driver refuses its mesh
+        path = os.path.join(EXAMPLES, "c384_multihost_emulator.yaml")
+        config = DriverConfig.from_yaml(path)
+        try:
+            Driver(config)
+        except NotImplementedError as err:
+            text = str(err)
+        else:
+            raise AssertionError("c384: the Driver accepted a 96-device mesh")
+        ok = "item 11" in text
+        log(f"[9] c384_multihost_emulator.yaml hydrates (mesh layout "
+            f"{list(config.mesh.layout)}); Driver raises NotImplementedError:"
+            f" {text} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"c384: {text}")
+
+    return total
+
 KERNELS = {
     "K-T": dict(name="fvtp2d transport_batched", source="pace_torch/csrc/fvtp2d.cu",
                 replaces="pace_tpu/ops/pallas/fvtp2d_pallas.py:217"),
@@ -726,11 +1093,17 @@ def main() -> None:
     coupled = run_coupled(card)
     check_card_against_cpu()
     run_emulator(card)
-    log(f"[8] all phases took {time.perf_counter() - started:.0f} s")
+
+    # ---- phase 9: the yaml entry point
+    t9 = time.perf_counter()
+    yaml_launches = run_yaml_configs(card)
+    log(f"[9] phase 9 took {time.perf_counter() - t9:.0f} s; all phases "
+        f"took {time.perf_counter() - started:.0f} s")
 
     kernels = [
         dict(**KERNELS[k], route="cuda", launches=launches[k],
-             launches_coupled=coupled[k], max_abs_err=results[k][0],
+             launches_coupled=coupled[k], launches_yaml=yaml_launches[k],
+             max_abs_err=results[k][0],
              ms=results[k][1],
              plain_ms=results[k][2], bound_ms=results[k][3],
              bound_by=results[k][4], library_ms=None)

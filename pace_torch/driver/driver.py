@@ -1,27 +1,41 @@
-"""The model driver: configuration, initialization and the time loop.
+"""The model driver: configuration, initialization, time loop, output.
 
 Port of `pace_tpu.driver.driver` (reference ai2cm/pace
 driver/pace/driver/driver.py `DriverConfig`, `Driver`).  One model step is
 the dycore step, then (unless `dycore_only` or `disable_step_physics`) the
 dry convective adjustment of the sponge layers, `DycoreToPhysics`,
 `Physics` and `UpdateAtmosphereState`.  The step runs eagerly on the
-driver's device: the card unless the caller asks for the CPU.
+driver's device: the card unless the caller asks for the CPU.  `step_all`
+adds the reference package's cadence of diagnostics, safety checks and
+intermediate restarts; `cleanup` writes the performance report, the grid
+and the final restart.
 
-Sections of the reference package's configuration whose modules are not
-ported raise `NotImplementedError` with the ROADMAP item that holds them.
+The configuration is the reference package's, key for key, so every yaml
+file it reads hydrates here; a device mesh of more than one device raises
+`NotImplementedError` when the `Driver` is built.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import logging
 import warnings
 from datetime import timedelta
+from typing import Optional, Tuple
 
 import torch
 
-from pace_torch.driver._from_dict import ConfigError, from_dict
+from pace_torch.driver import diagnostics as diag_mod
+from pace_torch.driver._from_dict import from_dict
 from pace_torch.driver.initialization import InitializerSelector
+from pace_torch.driver.performance import PerformanceConfig
+from pace_torch.driver.restart import RestartConfig
+from pace_torch.driver.safety_checks import (
+    SafetyChecker,
+    register_default_checks,
+)
 from pace_torch.driver.state import DriverState
 from pace_torch.grid.generation import generate_grid_data
 from pace_torch.models.coupler import DycoreToPhysics, UpdateAtmosphereState
@@ -32,60 +46,40 @@ from pace_torch.models.physics.physics import Physics
 from pace_torch.ops.fv_subgridz import dry_convective_adjustment
 from pace_torch.utils.gridtools import GridSizing
 
-# sections of the reference package's DriverConfig that the port does not
-# have yet, with the ROADMAP queue item that holds each
-UNPORTED_SECTIONS = {
-    "diagnostics_config": "ROADMAP Queue 1 item 10 (diagnostics)",
-    "restart_config": "ROADMAP Queue 1 item 10 (restart)",
-    "performance_config": "ROADMAP Queue 1 item 10 (performance)",
-    "safety_check_frequency": "ROADMAP Queue 1 item 10 (safety checks)",
-}
+logger = logging.getLogger("pace_torch.driver")
 
 
-# sections that describe the device mesh and the generated grid: the port
-# runs one device on the unstretched grid, so each key is accepted only at
-# the reference package's default
-MESH_DEFAULTS = dict(layout=(1, 1, 1), multihost=False,
-                     coordinator_address=None, num_processes=None,
-                     process_id=None, dcn_mesh_shape=None)
-GRID_DEFAULTS = dict(stretch_factor=None, lon_target=350.0, lat_target=-90.0,
-                     eta_file=None)
+@dataclasses.dataclass
+class MeshConfig:
+    """Device mesh over (tile, x, y), as the reference package's.  The port
+    runs one device: any other layout, a multi-host run or a DCN mesh
+    raises at `Driver` construction (ROADMAP Queue 1 item 11)."""
 
+    layout: Tuple[int, int, int] = (1, 1, 1)
+    multihost: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    dcn_mesh_shape: Optional[Tuple[int, int, int]] = None
 
-def _only_defaults(name: str, section, defaults: dict, where: str) -> None:
-    """Raises `ConfigError` for a key the reference package's section does
-    not have, `NotImplementedError` for one that is not at its default."""
-    if section is None:
-        return
-    if not isinstance(section, dict):
-        raise ConfigError(f"{name}: expected mapping, "
-                          f"got {type(section).__name__}")
-    unknown = set(section) - set(defaults)
-    if unknown:
-        raise ConfigError(f"{name}: unknown keys {sorted(unknown)}; "
-                          f"allowed: {sorted(defaults)}")
-    for key, value in section.items():
-        if isinstance(value, list):
-            value = tuple(value)
-        if value != defaults[key]:
+    def check_single_device(self):
+        if (tuple(self.layout) != (1, 1, 1) or self.multihost
+                or self.dcn_mesh_shape is not None):
             raise NotImplementedError(
-                f"{name}.{key} = {value!r} is not ported: {where}")
+                f"mesh layout={list(self.layout)} multihost={self.multihost}"
+                f" dcn_mesh_shape={self.dcn_mesh_shape} is not ported: the "
+                "port runs one device (ROADMAP Queue 1 item 11, multi-GPU)")
 
 
-def _drop_unported(kwargs: dict) -> dict:
-    """kwargs without the sections that only say "one device, generated
-    grid"; raises for a section whose module is not ported."""
-    kwargs = dict(kwargs)
-    for key, where in UNPORTED_SECTIONS.items():
-        if kwargs.get(key) is not None:
-            raise NotImplementedError(f"{key} is not ported: {where}")
-        kwargs.pop(key, None)
-    _only_defaults("mesh", kwargs.pop("mesh", None), MESH_DEFAULTS,
-                   "ROADMAP Queue 1 item 11 (multi-GPU)")
-    _only_defaults("grid_config", kwargs.pop("grid_config", None),
-                   GRID_DEFAULTS,
-                   "ROADMAP Queue 1 item 9 (stretched grid, eta files)")
-    return kwargs
+@dataclasses.dataclass
+class GridConfig:
+    """Generated-grid options (reference driver/pace/driver/grid.py:82
+    GeneratedGridConfig): Schmidt stretching and vertical-table override."""
+
+    stretch_factor: Optional[float] = None
+    lon_target: float = 350.0
+    lat_target: float = -90.0
+    eta_file: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -97,6 +91,8 @@ class DriverConfig:
         nx_tile: gridpoints per horizontal tile dimension
         nz: vertical levels
         dt_atmos: timestep (s)
+        mesh: device-mesh layout (one device)
+        grid_config: stretched-grid / eta-file options
         dtype: "float32" or "float64"
     """
 
@@ -104,11 +100,22 @@ class DriverConfig:
     nx_tile: int
     nz: int
     dt_atmos: float
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    grid_config: GridConfig = dataclasses.field(default_factory=GridConfig)
+    diagnostics_config: diag_mod.DiagnosticsConfig = dataclasses.field(
+        default_factory=diag_mod.DiagnosticsConfig
+    )
+    performance_config: PerformanceConfig = dataclasses.field(
+        default_factory=PerformanceConfig
+    )
     dycore_config: DynamicalCoreConfig = dataclasses.field(
         default_factory=DynamicalCoreConfig
     )
     physics_config: PhysicsConfig = dataclasses.field(
         default_factory=PhysicsConfig
+    )
+    restart_config: RestartConfig = dataclasses.field(
+        default_factory=RestartConfig
     )
     days: int = 0
     hours: int = 0
@@ -116,6 +123,7 @@ class DriverConfig:
     seconds: int = 0
     dycore_only: bool = False
     disable_step_physics: bool = False
+    safety_check_frequency: Optional[int] = None
     dtype: str = "float32"
 
     @functools.cached_property
@@ -136,9 +144,15 @@ class DriverConfig:
 
     @classmethod
     def from_dict(cls, kwargs: dict) -> "DriverConfig":
-        """Strict: an unknown key raises `ConfigError`, a section of the
-        reference package that is not ported `NotImplementedError`."""
-        return from_dict(cls, _drop_unported(kwargs))
+        """Strict: an unknown key raises `ConfigError`."""
+        return from_dict(cls, kwargs)
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "DriverConfig":
+        import yaml
+
+        with open(path) as f:
+            return cls.from_dict(yaml.safe_load(f))
 
 
 class Driver:
@@ -146,48 +160,85 @@ class Driver:
         if config.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be float32 or float64, "
                              f"got {config.dtype!r}")
+        config.mesh.check_single_device()
         self.config = config
         self.device = torch.device(device)
         self.time = config.initialization.start_time
+        perf = config.performance_config
+        self.performance_collector = perf.build(self.device)
+        self.profiler = perf.build_profiler(self.device)
         dtype = getattr(torch, config.dtype)
 
-        sizing = GridSizing(config.nx_tile, config.nz)
-        grid_data = generate_grid_data(
-            config.nx_tile, config.nz, device=self.device, dtype=dtype)
-        dycore_state = config.initialization.get_dycore_state(
-            sizing, self.device, dtype)
-        self.state = DriverState(
-            dycore_state=dycore_state, grid_data=grid_data, sizing=sizing,
-            time=self.time,
-        )
-        self.dycore = DynamicalCore(
-            config.dycore_config, sizing, grid_data, config.dt_atmos)
-        if not (config.dycore_only or config.disable_step_physics):
-            # a Python float, read once: the step never asks the device
-            self._ptop = float(grid_data.vertical.ptop)
-            self.physics = Physics(
-                config.physics_config, grid_data.horizontal.area,
-                self._ptop, config.dt_atmos, device=self.device,
+        with self.performance_collector.total_timer.clock("initialization"):
+            if self.device.type == "cuda":
+                # the kernels build (nvcc) or load here, so that the first
+                # step's time holds none of it
+                from pace_torch.ops import _cuda
+
+                info = _cuda.build()
+                _cuda.library()
+                logger.info("CUDA kernels: %s (built in %.1f s)",
+                            info.path, info.seconds)
+            sizing = GridSizing(config.nx_tile, config.nz)
+            gc = config.grid_config
+            grid_data = generate_grid_data(
+                config.nx_tile, config.nz, device=self.device, dtype=dtype,
+                stretch_factor=gc.stretch_factor, lon_target=gc.lon_target,
+                lat_target=gc.lat_target, eta_file=gc.eta_file,
             )
-            self.dycore_to_physics = DycoreToPhysics(
-                sizing, dtype=dtype, device=self.device)
-            self.end_of_step_update = UpdateAtmosphereState(
-                grid_data, self.dycore.topo, sizing, config.dt_atmos,
-                c2l_order=config.dycore_config.c2l_ord, device=self.device,
+            dycore_state = config.initialization.get_dycore_state(
+                sizing, self.device, dtype)
+            self.state = DriverState(
+                dycore_state=dycore_state, grid_data=grid_data,
+                sizing=sizing, time=self.time,
             )
-        else:
-            self.physics = None
-        self._step = self._build_step()
+            # performance_config.sections: the phases of each step are
+            # timed (the timer synchronises the device at each phase's
+            # ends); without it the step holds no synchronisation at all
+            self._section_timer = (
+                self.performance_collector.timestep_timer
+                if perf.sections else None)
+            self.dycore = DynamicalCore(
+                config.dycore_config, sizing, grid_data, config.dt_atmos,
+                timer=self._section_timer)
+            if not (config.dycore_only or config.disable_step_physics):
+                # a Python float, read once: the step never asks the device
+                self._ptop = float(grid_data.vertical.ptop)
+                self.physics = Physics(
+                    config.physics_config, grid_data.horizontal.area,
+                    self._ptop, config.dt_atmos, device=self.device,
+                )
+                self.dycore_to_physics = DycoreToPhysics(
+                    sizing, dtype=dtype, device=self.device)
+                self.end_of_step_update = UpdateAtmosphereState(
+                    grid_data, self.dycore.topo, sizing, config.dt_atmos,
+                    c2l_order=config.dycore_config.c2l_ord,
+                    device=self.device,
+                )
+            else:
+                self.physics = None
+            self._step = self._build_step()
+            self.diagnostics = (
+                config.diagnostics_config.diagnostics_factory(sizing)
+            )
+            self.safety_checker = SafetyChecker(sizing)
+            if config.safety_check_frequency:
+                register_default_checks()
 
     @classmethod
     def from_dict(cls, kwargs: dict, device="cuda") -> "Driver":
         return cls(DriverConfig.from_dict(kwargs), device=device)
+
+    def _synchronize(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _build_step(self):
         dycore = self.dycore
         physics = self.physics
         cfg = self.config.dycore_config
         do_sg = cfg.fv_sg_adj > 0 and physics is not None
+        timer = self._section_timer
 
         def physics_step(state):
             u_dt0 = v_dt0 = None
@@ -208,7 +259,9 @@ class Driver:
         def step(state):
             state = dycore.step_dynamics(state)
             if physics is not None:
-                state = physics_step(state)
+                with (timer.clock("Physics") if timer is not None
+                      else contextlib.nullcontext()):
+                    state = physics_step(state)
             return state
 
         self.physics_step = physics_step if physics is not None else None
@@ -221,7 +274,57 @@ class Driver:
         self.state.time = self.time
 
     def step_all(self):
-        for _ in range(self.config.n_timesteps()):
-            self.step()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        """The configured run: each step timed to one synchronisation of
+        the device, then diagnostics, safety checks and intermediate
+        restarts at their own cadence."""
+        config = self.config
+        collector = self.performance_collector
+        if config.diagnostics_config.output_initial_state:
+            self.diagnostics.store(self.time, self.state.dycore_state)
+        n_steps = config.n_timesteps()
+        self.profiler.enable()
+        with collector.total_timer.clock("total"):
+            for step in range(n_steps):
+                collector.start_step()
+                self.step()
+                self._synchronize()
+                collector.end_step()
+                if (step + 1) % config.diagnostics_config.output_frequency \
+                        == 0:
+                    self.diagnostics.store(
+                        self.time, self.state.dycore_state
+                    )
+                if config.safety_check_frequency and \
+                        (step + 1) % config.safety_check_frequency == 0:
+                    self.safety_checker.check_state(
+                        self.state.dycore_state
+                    )
+                config.restart_config.write_intermediate_if_enabled(
+                    self.state, step + 1, self.time
+                )
+        self.profiler.dump_stats()
+
+    def cleanup(self):
+        """Flush the perf JSON, the grid diagnostics, the diagnostics and
+        the final restart.
+
+        Called from run.py's try/finally, so it must survive a crashed
+        step: the state is that of the last completed step, and each flush
+        is independent, so a failure in one is logged and does not mask
+        the original exception or block the others."""
+        report = self.performance_collector.write_out_performance(
+            f"torch/{self.device.type}", self.config.dt_atmos
+        )
+        for what, flush in (
+            ("grid diagnostics",
+             lambda: self.diagnostics.store_grid(self.state.grid_data)),
+            ("diagnostics", self.diagnostics.cleanup),
+            ("final restart",
+             lambda: self.config.restart_config.write_final_if_enabled(
+                 self.state, self.time)),
+        ):
+            try:
+                flush()
+            except Exception:
+                logger.exception("cleanup: could not flush %s", what)
+        return report

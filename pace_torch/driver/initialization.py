@@ -2,9 +2,11 @@
 
 Port of `pace_tpu.driver.initialization` (reference ai2cm/pace
 driver/pace/driver/initialization.py): an Initializer ABC behind an
-InitializerSelector hydrated from {"type": ..., "config": {...}}.  Only
-"baroclinic" (Jablonowski & Williamson 2006) is ported; the reference
-package's other types raise `NotImplementedError`.
+InitializerSelector hydrated from {"type": ..., "config": {...}}:
+"baroclinic" (Jablonowski & Williamson 2006), "tropicalcyclone" (Reed &
+Jablonowski), "restart" (a restart written by either package) and
+"predefined" (a DycoreState built by the caller).  "fortran_restart" raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -14,14 +16,13 @@ import dataclasses
 from datetime import datetime
 
 from pace_torch.driver._from_dict import ConfigError, from_dict
+from pace_torch.models.fv3.state import DycoreState
 
 # initialisation types of the reference package that the port does not have
 # yet, with the ROADMAP queue item that holds each
 UNPORTED_TYPES = {
-    "tropicalcyclone": "ROADMAP Queue 1 item 9 (tropical-cyclone init)",
-    "restart": "ROADMAP Queue 1 item 10 (restart)",
-    "fortran_restart": "ROADMAP Queue 1 item 10 (legacy restart files)",
-    "predefined": "ROADMAP Queue 1 item 10 (predefined state)",
+    "fortran_restart": "ROADMAP Queue 1 item 10 (legacy restart files, "
+                       "utils/legacy_restart.py)",
 }
 
 
@@ -54,7 +55,72 @@ class BaroclinicInit(Initializer):
         return init_baroclinic_state(sizing, device=device, dtype=dtype)
 
 
-REGISTERED = {"baroclinic": BaroclinicInit}
+@dataclasses.dataclass
+class TropicalCycloneConfig(Initializer):
+    """Reed-Jablonowski tropical cyclone test case (FV3 test_case 55)."""
+
+    start_time_str: str = "2000-01-01 00:00:00"
+
+    @property
+    def start_time(self) -> datetime:
+        return datetime.fromisoformat(self.start_time_str)
+
+    def get_dycore_state(self, sizing, device, dtype):
+        from pace_torch.models.fv3.init.tropical_cyclone import init_tc_state
+
+        return init_tc_state(sizing, device=device, dtype=dtype)
+
+
+@dataclasses.dataclass
+class RestartInit(Initializer):
+    """Start from a restart directory written by either package."""
+
+    path: str = "RESTART"
+    start_time_str: str = "2000-01-01 00:00:00"
+
+    @property
+    def start_time(self) -> datetime:
+        return datetime.fromisoformat(self.start_time_str)
+
+    def get_dycore_state(self, sizing, device, dtype):
+        from pace_torch.driver.restart import load_restart_arrays
+
+        return DycoreState.from_numpy(load_restart_arrays(self.path),
+                                      device, dtype)
+
+
+@dataclasses.dataclass
+class PredefinedStateInit(Initializer):
+    """Start from an already-constructed DycoreState (reference
+    driver/pace/driver/initialization.py:381 PredefinedStateInit), moved to
+    the driver's device and dtype.  For programmatic use: a yaml file
+    cannot hold the state."""
+
+    dycore_state: object = None
+    start_time_str: str = "2016-08-01 00:00:00"
+
+    @property
+    def start_time(self) -> datetime:
+        return datetime.fromisoformat(self.start_time_str)
+
+    def get_dycore_state(self, sizing, device, dtype):
+        if self.dycore_state is None:
+            raise ValueError(
+                "predefined initializer requires a dycore_state object"
+            )
+        return DycoreState(**{
+            f.name: getattr(self.dycore_state, f.name).to(device=device,
+                                                          dtype=dtype)
+            for f in dataclasses.fields(DycoreState)
+        })
+
+
+REGISTERED = {
+    "baroclinic": BaroclinicInit,
+    "tropicalcyclone": TropicalCycloneConfig,
+    "restart": RestartInit,
+    "predefined": PredefinedStateInit,
+}
 
 
 @dataclasses.dataclass

@@ -27,20 +27,45 @@ class HybridPressureCoefficients:
     bk: np.ndarray
 
 
-def set_hybrid_pressure_coefficients(km: int) -> HybridPressureCoefficients:
+def set_hybrid_pressure_coefficients(
+    km: int, eta_file: str = None
+) -> HybridPressureCoefficients:
     """Return the ak/bk tables (length km+1) for a supported level count.
 
     ks is the number of pure-pressure layers at the model top (bk == 0);
     ptop is the pressure at the model top interface, ak[0].
+
+    Args:
+        km: number of vertical levels.
+        eta_file: optional path to a file holding "ak" and "bk" variables
+            of length km+1 — NetCDF3 (the reference's eta-file format,
+            driver/pace/driver/grid.py:82 GeneratedGridConfig) or npz.
+            Overrides the built-in 79/91-level tables.
     """
-    data = np.load(_DATA_PATH)
-    try:
-        ak = data[f"ak_{km}"].astype(np.float64)
-        bk = data[f"bk_{km}"].astype(np.float64)
-    except KeyError:
-        raise NotImplementedError(
-            f"no hybrid pressure coefficients for km={km}; supported: 79, 91"
-        )
+    if eta_file is not None:
+        if eta_file.endswith(".npz"):
+            src = np.load(eta_file)
+        else:
+            from pace_torch.utils.netcdf import read_dataset
+
+            src = read_dataset(eta_file)
+        ak = np.asarray(src["ak"], np.float64)
+        bk = np.asarray(src["bk"], np.float64)
+        if ak.shape != (km + 1,) or bk.shape != (km + 1,):
+            raise ValueError(
+                f"eta file {eta_file}: ak/bk must have length km+1="
+                f"{km + 1}, got {ak.shape}/{bk.shape}"
+            )
+    else:
+        data = np.load(_DATA_PATH)
+        try:
+            ak = data[f"ak_{km}"].astype(np.float64)
+            bk = data[f"bk_{km}"].astype(np.float64)
+        except KeyError:
+            raise NotImplementedError(
+                f"no hybrid pressure coefficients for km={km}; supported: "
+                "79, 91 (or provide eta_file)"
+            )
     if 0.0 in bk:
         ks = int(np.where(bk == 0)[0][-1])
     else:

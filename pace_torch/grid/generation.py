@@ -237,10 +237,16 @@ def _conv(x):
     return np.clip(x, -1.0e30, 1.0e30)
 
 
-def grid_arrays_numpy(n: int, nz: int, halo: int = N_HALO_DEFAULT) -> dict:
+def grid_arrays_numpy(n: int, nz: int, halo: int = N_HALO_DEFAULT,
+                      stretch_factor: float = None,
+                      lon_target: float = 350.0, lat_target: float = -90.0,
+                      eta_file: str = None) -> dict:
     """The nested numpy leaves `GridData.from_numpy` takes, float64."""
-    raw = _generate_metric_terms(n, halo)
-    vertical = eta.set_hybrid_pressure_coefficients(nz)
+    raw = _generate_metric_terms(
+        n, halo, stretch_factor=stretch_factor,
+        lon_target=lon_target, lat_target=lat_target,
+    )
+    vertical = eta.set_hybrid_pressure_coefficients(nz, eta_file=eta_file)
     out = {
         "horizontal": {k: _conv(v) for k, v in raw["horizontal"].items()},
         "angle": {k: _conv(v) for k, v in raw["angle"].items()},
@@ -257,14 +263,39 @@ def grid_arrays_numpy(n: int, nz: int, halo: int = N_HALO_DEFAULT) -> dict:
 
 
 def generate_grid_data(n: int, nz: int, halo: int = N_HALO_DEFAULT, *,
-                       device="cuda", dtype=torch.float32) -> GridData:
+                       device="cuda", dtype=torch.float32,
+                       stretch_factor: float = None,
+                       lon_target: float = 350.0, lat_target: float = -90.0,
+                       eta_file: str = None) -> GridData:
     """Generate the full metric-term bundle for a C`n` grid with `nz`
-    levels (unstretched; the built-in 79/91-level ak/bk tables)."""
-    return GridData.from_numpy(grid_arrays_numpy(n, nz, halo), device, dtype)
+    levels.
+
+    stretch_factor/lon_target/lat_target apply the Schmidt stretched-grid
+    transformation (grid/stretch_transformation.py) to the gnomonic grid
+    before any metric is derived; eta_file overrides the built-in ak/bk
+    tables — the knobs of the reference's GeneratedGridConfig
+    (driver/pace/driver/grid.py:82-140)."""
+    return GridData.from_numpy(
+        grid_arrays_numpy(n, nz, halo, stretch_factor=stretch_factor,
+                          lon_target=lon_target, lat_target=lat_target,
+                          eta_file=eta_file),
+        device, dtype)
+
+
+def _generate_metric_terms(
+    n: int, halo: int, stretch_factor: float = None,
+    lon_target: float = 350.0, lat_target: float = -90.0,
+):
+    """The raw float64 metric terms, computed once per distinct grid (an
+    unstretched grid ignores the targets)."""
+    if stretch_factor is None or stretch_factor == 1.0:
+        stretch_factor, lon_target, lat_target = None, 350.0, -90.0
+    return _metric_terms(n, halo, stretch_factor, float(lon_target),
+                         float(lat_target))
 
 
 @functools.lru_cache(maxsize=4)
-def _generate_metric_terms(n: int, halo: int):
+def _metric_terms(n, halo, stretch_factor, lon_target, lat_target):
     topo = get_topology(n, halo)
     h = halo
     N = topo.N
@@ -284,6 +315,16 @@ def _generate_metric_terms(n: int, halo: int):
     # shift the corner away from Japan (reference generation.py:1604-1610)
     lon_c = lon_c - PI / 18.0
     lon_c = np.where(lon_c < 0, lon_c + 2 * PI, lon_c)
+    if stretch_factor is not None:
+        # Schmidt stretch on the D-grid corners; every metric below is
+        # derived from these, so the transform propagates everywhere
+        # (reference driver/pace/driver/grid.py:109 + generation.py)
+        from pace_torch.grid.stretch_transformation import direct_transform
+
+        lon_c, lat_c = direct_transform(
+            lon=lon_c, lat=lat_c, stretch_factor=stretch_factor,
+            lon_target=lon_target, lat_target=lat_target,
+        )
     grid = np.zeros((6, N, N, 2))
     grid[:, h:h + n + 1, h:h + n + 1, 0] = lon_c
     grid[:, h:h + n + 1, h:h + n + 1, 1] = lat_c

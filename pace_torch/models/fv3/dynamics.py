@@ -11,6 +11,7 @@ a CUDA device, their plain torch versions on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -33,7 +34,10 @@ class DynamicalCore:
     grid data."""
 
     def __init__(self, config: DynamicalCoreConfig, sizing: GridSizing,
-                 grid_data, timestep: float):
+                 grid_data, timestep: float, timer=None):
+        """With a `timer` (utils/timing.Timer), each step clocks its
+        acoustic substeps, tracer advection and remap as "DynCore",
+        "TracerAdvection" and "Remapping", summed over k_split."""
         if config.hydrostatic:
             raise NotImplementedError("hydrostatic mode is not implemented")
         if config.consv_te > 0:
@@ -46,6 +50,7 @@ class DynamicalCore:
         self.device = grid_data.device
         self.dtype = grid_data.dtype
         self.timestep = timestep
+        self.timer = timer
         self.topo = get_topology(sizing.n, sizing.halo)
         self.column_namelist = get_column_namelist(config, sizing.nz)
         # in the grid's dtype, as the reference package computes them
@@ -65,7 +70,7 @@ class DynamicalCore:
         return fv_dynamics(
             state, self.grid_data, self.column_namelist, self.config,
             self.topo, self.sizing.n, self.sizing.halo, self.timestep,
-            self.vertical_params,
+            self.vertical_params, self.timer,
         )
 
 
@@ -154,18 +159,27 @@ def _postlude(s: dict, gd, topo, n: int, h: int,
 
 def fv_dynamics(
     state: DycoreState, gd, col, config: DynamicalCoreConfig, topo,
-    n: int, h: int, timestep: float, vp: dict,
+    n: int, h: int, timestep: float, vp: dict, timer=None,
 ) -> DycoreState:
+    def section(name):
+        return (timer.clock(name) if timer is not None
+                else contextlib.nullcontext())
+
     s = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
     s, cappa, wsd = _preamble(s, config)
     k_split = config.k_split
     mdt = timestep / k_split
     for k_loop in range(k_split):
         dp_initial = s["delp"]
-        s, cappa, wsd, _pem = acoustics.acoustic_dynamics(
-            s, cappa, gd, col, config, topo, n, h, mdt, k_loop + 1, wsd, vp,
-        )
-        s = _phase_tracer_advection(s, dp_initial, gd, topo, n, h, config)
-        s, cappa = _phase_remap(s, cappa, wsd, gd, config, topo, n, h,
-                                k_loop == k_split - 1, mdt, vp)
+        with section("DynCore"):
+            s, cappa, wsd, _pem = acoustics.acoustic_dynamics(
+                s, cappa, gd, col, config, topo, n, h, mdt, k_loop + 1, wsd,
+                vp,
+            )
+        with section("TracerAdvection"):
+            s = _phase_tracer_advection(s, dp_initial, gd, topo, n, h,
+                                        config)
+        with section("Remapping"):
+            s, cappa = _phase_remap(s, cappa, wsd, gd, config, topo, n, h,
+                                    k_loop == k_split - 1, mdt, vp)
     return _postlude(s, gd, topo, n, h, config)

@@ -102,21 +102,13 @@ def init_baroclinic_state_numpy(
 ):
     """Returns a dict of float64 numpy arrays for every DycoreState field."""
     hz = raw_metrics["horizontal"]
-    n, h, nz = sizing.n, sizing.halo, sizing.nz
-    N = sizing.N
+    n, h = sizing.n, sizing.halo
     topo = get_topology(n, h)
     ak = np.asarray(vertical.ak)
     bk = np.asarray(vertical.bk)
     ptop = vertical.ptop
 
-    arrays = {}
-    for name, (_, dims, _) in state_mod.FIELD_METADATA.items():
-        shape = [6, N, N]
-        if dims[-1] == constants.Z_DIM:
-            shape.append(nz)
-        elif dims[-1] == constants.Z_INTERFACE_DIM:
-            shape.append(nz + 1)
-        arrays[name] = np.zeros(tuple(shape))
+    arrays = state_mod.zeros_numpy(sizing)
 
     ci = slice(h, h + n)       # compute cells
     cie = slice(h, h + n + 1)  # compute interfaces

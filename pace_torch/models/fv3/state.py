@@ -72,6 +72,20 @@ TRACER_NAMES = (
 NQ = 8
 
 
+def zeros_numpy(sizing) -> Dict[str, np.ndarray]:
+    """float64 zeros for every field, in the padded layout (6, N, N[, nz or
+    nz + 1])."""
+    arrays = {}
+    for name, (_, dims, _) in FIELD_METADATA.items():
+        shape = [6, sizing.N, sizing.N]
+        if dims[-1] == Z:
+            shape.append(sizing.nz)
+        elif dims[-1] == ZI:
+            shape.append(sizing.nz + 1)
+        arrays[name] = np.zeros(tuple(shape))
+    return arrays
+
+
 @dataclasses.dataclass
 class DycoreState:
     u: torch.Tensor

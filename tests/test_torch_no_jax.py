@@ -1,8 +1,10 @@
 """The port needs no JAX: with `jax` made unimportable, a fresh interpreter
 imports every module of pace_torch (the physics, coupler and driver
-packages among them), builds the C12 grid and initial state, runs one
-dycore step and one coupled `Driver` step on the CPU; nothing of the
-reference package is imported on the way.  And the port's entry points
+packages and the driver's I/O among them), builds the C12 grid and initial
+state, runs one dycore step, and one coupled step through the yaml entry
+point `python -m pace_torch.driver.run` with NetCDF diagnostics and
+restart, on the CPU; nothing of the reference package is imported on the
+way.  And the port's entry points
 run on the card unless the caller asks for the CPU: read from their
 signatures, and tried where there is no card."""
 
@@ -20,6 +22,7 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 
 _SCRIPT = r"""
 import importlib, pkgutil, sys
+import numpy as np
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 import torch
 torch.set_num_threads(2)
@@ -34,7 +37,12 @@ for name in ("ops.saturation_adjustment", "ops.fv_subgridz",
              "models.physics.config", "models.coupler.update_atmos_state",
              "models.coupler.fv_update_phys",
              "models.coupler.update_dwind_phys", "driver.driver",
-             "driver.initialization", "driver.state", "driver._from_dict"):
+             "driver.initialization", "driver.state", "driver._from_dict",
+             "driver.run", "driver.diagnostics", "driver.restart",
+             "driver.performance", "driver.safety_checks", "utils.timing",
+             "utils.netcdf", "utils.zarrlite", "utils.host",
+             "grid.stretch_transformation",
+             "models.fv3.init.tropical_cyclone"):
     assert "pace_torch." + name in walked, name
 from pace_torch.grid.generation import generate_grid_data
 from pace_torch.models.fv3.config import DynamicalCoreConfig
@@ -48,17 +56,36 @@ state = core.step_dynamics(init_baroclinic_state(
     sizing, device="cpu", dtype=torch.float32))
 h = sizing.halo
 assert bool(torch.isfinite(state.pt[:, h:h + 12, h:h + 12]).all())
-from pace_torch.driver import Driver
-driver = Driver.from_dict(dict(
+import os, tempfile, yaml
+from pace_torch.driver.restart import load_restart_arrays
+from pace_torch.driver.run import main
+from pace_torch.utils.netcdf import NetCDFMonitor
+tmp = tempfile.mkdtemp()
+config = dict(
     nx_tile=12, nz=79, dt_atmos=225, seconds=225, dtype="float32",
     initialization={"type": "baroclinic"},
     dycore_config=dict(do_sat_adj=True, fv_sg_adj=3600, n_sponge=48),
-    physics_config=dict(dt_atmos=225, mp_time=225)), device="cpu")
-driver.step_all()
-coupled = driver.state.dycore_state
+    physics_config=dict(dt_atmos=225, mp_time=225),
+    diagnostics_config=dict(path=os.path.join(tmp, "out"),
+                            output_format="netcdf", names=["pt", "qvapor"]),
+    restart_config=dict(save_restart=True, format="netcdf",
+                        path=os.path.join(tmp, "RESTART")),
+    performance_config=dict(experiment_name="no_jax"),
+    safety_check_frequency=1)
+with open(os.path.join(tmp, "config.yaml"), "w") as f:
+    yaml.safe_dump(config, f)
+os.chdir(tmp)
+assert main([os.path.join(tmp, "config.yaml"), "--device", "cpu",
+             "--log-level", "WARNING"]) == 0
+coupled = load_restart_arrays(os.path.join(tmp, "RESTART"))
 for name in ("pt", "delp", "qvapor", "u", "v", "w"):
-    assert bool(torch.isfinite(
-        getattr(coupled, name)[:, h:h + 12, h:h + 12]).all()), name
+    assert np.isfinite(coupled[name][:, h:h + 12, h:h + 12]).all(), name
+times, records = NetCDFMonitor.read(os.path.join(tmp, "out"))
+assert len(records) == 1 and np.isfinite(records[0]["pt"]).all()
+assert os.path.exists(os.path.join(tmp, "no_jax_perf.json"))
+os.chdir("/")
+import shutil
+shutil.rmtree(tmp)
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "pace_tpu")]
 assert sys.modules["jax"] is None and loaded == ["jax"], loaded
 print("NO_JAX_OK")
@@ -92,18 +119,31 @@ def _entry_points():
     from pace_torch.models.physics.microphysics import Microphysics
     from pace_torch.models.physics.physics import Physics
     from pace_torch.models.physics.physics_state import PhysicsState
+    from pace_torch.driver.performance import PerformanceConfig
+    from pace_torch.grid.generation import generate_grid_data
+    from pace_torch.models.fv3.init.baroclinic import init_baroclinic_state
+    from pace_torch.models.fv3.init.tropical_cyclone import init_tc_state
+    from pace_torch.utils.timing import Timer
 
     return [Driver, Driver.from_dict, Physics, Microphysics,
             MicrophysicsEmulator, DycoreToPhysics, UpdateAtmosphereState,
-            interior_mask, PhysicsState.init_zeros]
+            interior_mask, PhysicsState.init_zeros, generate_grid_data,
+            init_baroclinic_state, init_tc_state, PerformanceConfig.build,
+            Timer]
 
 
-@pytest.mark.parametrize("index", range(9))
+@pytest.mark.parametrize("index", range(14))
 def test_new_entry_points_default_to_the_card(index):
     """The driver, the physics and the coupler are built on the card unless
     the caller asks for the CPU (read from the signature; needs no card)."""
     entry = _entry_points()[index]
     assert inspect.signature(entry).parameters["device"].default == "cuda"
+
+
+def test_the_yaml_entry_point_defaults_to_the_card():
+    from pace_torch.driver.run import build_parser
+
+    assert build_parser().parse_args(["config.yaml"]).device == "cuda"
 
 
 def test_entry_points_raise_without_a_card():
@@ -119,6 +159,8 @@ def test_entry_points_raise_without_a_card():
         MLPEmulatorConfig,
     )
     from pace_torch.models.physics.microphysics import Microphysics
+    from pace_torch.driver.run import main
+    from pace_torch.models.fv3.init.tropical_cyclone import init_tc_state
     from pace_torch.models.physics.physics import Physics
     from pace_torch.utils.gridtools import GridSizing
 
@@ -132,6 +174,10 @@ def test_entry_points_raise_without_a_card():
                             area, 300.0, 225.0),
             lambda: Microphysics(PhysicsConfig(), area, 225.0),
             lambda: MicrophysicsEmulator(MLPEmulatorConfig(), 8),
-            lambda: DycoreToPhysics(GridSizing(12, 79))):
+            lambda: DycoreToPhysics(GridSizing(12, 79)),
+            lambda: init_tc_state(GridSizing(12, 79)),
+            lambda: main([str(REPO / "examples" / "configs"
+                              / "baroclinic_c12.yaml"),
+                          "--log-level", "ERROR"])):
         with pytest.raises((RuntimeError, AssertionError)):
             build()
