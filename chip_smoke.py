@@ -49,7 +49,24 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      c96_baroclinic_shield.yaml, tropical_cyclone_c48.yaml cut to 4 steps
      (vortex checks), and c384_multihost_emulator.yaml, whose 96-device
      mesh the Driver refuses; each run's diagnostics, perf JSON, restart,
-     safety checks and exact launch counts.
+     safety checks and exact launch counts;
+  10. the dycore branches kord 8, kord 10, do_skeb and the dynamic tracer
+     subcycle: each as one C12/79 float64 step on the card against the same
+     step on the CPU (every field within 1e-9 of its scale; for kord 10,
+     which branches on exact ties, the step is reported and its remap
+     operators are held at 1e-9 on the same columns on both devices), and
+     as two C48/79 float32 steps on the card with finite interiors and
+     exact launch counts (under the subcycle, the transport's launches are
+     the trip counts it took plus d_sw's);
+  11. the JW day-1 anchor: 192 steps of the C12/79 float64 baroclinic wave
+     (k_split=1, n_split=4, dt=450 s) on the card, its digest within 1e-7
+     of tests/golden/jw_day1_c12_f64.json;
+  12. the other entry points: `pace_torch.driver.run` from a six-tile
+     Fortran restart of the baroclinic C12 start (written here with scipy)
+     for two steps, its first state the written one and its run finite; one
+     GeosDycoreWrapper call, equal bit for bit to a DynamicalCore step on
+     the same inputs; one C12 step under a checkpointer, whose savepoints
+     come in the reference's order.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -286,7 +303,7 @@ def check_fillz(results):
 # phases 3 to 6: the dycore step
 # ---------------------------------------------------------------------------
 
-def make_core(n, dtype, dt, **settings):
+def make_core(n, dtype, dt, device="cuda", **settings):
     from pace_torch.grid.generation import generate_grid_data
     from pace_torch.models.fv3.config import DynamicalCoreConfig
     from pace_torch.models.fv3.dynamics import DynamicalCore
@@ -294,10 +311,10 @@ def make_core(n, dtype, dt, **settings):
     from pace_torch.utils.gridtools import GridSizing
 
     sizing = GridSizing(n, 79)
-    gd = generate_grid_data(n, 79, device="cuda", dtype=dtype)
+    gd = generate_grid_data(n, 79, device=device, dtype=dtype)
     config = DynamicalCoreConfig(do_sat_adj=False, **settings)
     core = DynamicalCore(config, sizing, gd, timestep=dt)
-    state = init_baroclinic_state(sizing, device="cuda", dtype=dtype)
+    state = init_baroclinic_state(sizing, device=device, dtype=dtype)
     return sizing, core, state
 
 
@@ -406,22 +423,55 @@ def check_finite(tag, state, sizing) -> None:
     log(f"[{tag}] every prognostic field's compute interior is finite")
 
 
-def check_launches(tag, launches, config, steps) -> None:
+def check_launches(tag, launches, config, steps, tracer_trips=None) -> None:
+    """Each kernel launched as often as `steps` steps of the configuration
+    imply; `tracer_trips`, the dynamic subcycle's trip counts summed over
+    the steps, replaces tracer advection's fixed three a step."""
     per_step = expected_launches(config)
     for name, count in launches.items():
         expect = per_step[name] * steps
-        log(f"[{tag}] {name} launches: expected {expect} "
-            f"({per_step[name]}/step x {steps}), got {count}")
+        how = f"{per_step[name]}/step x {steps}"
+        if name == "K-T" and tracer_trips is not None:
+            acoustic = per_step[name] - 3 * config.k_split
+            expect = acoustic * steps + tracer_trips
+            how = (f"{acoustic}/step x {steps} in the acoustics + "
+                   f"{tracer_trips} subcycle trips")
+        log(f"[{tag}] {name} launches: expected {expect} ({how}), "
+            f"got {count}")
         if count != expect or count == 0:
             raise AssertionError(
                 f"{name}: {count} launches, expected {expect}")
+
+
+class TripCounts:
+    """Stands in for tracer advection's `subcycle_count` while in use and
+    keeps every trip count the dynamic subcycle took."""
+
+    def __init__(self):
+        from pace_torch.ops import tracer_advection
+
+        self.module = tracer_advection
+        self.count = tracer_advection.subcycle_count
+        self.trips = []
+
+    def __call__(self, *args):
+        self.trips.append(self.count(*args))
+        return self.trips[-1]
+
+    def __enter__(self):
+        self.module.subcycle_count = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.subcycle_count = self.count
 
 
 def run_path(tag, n, dt, warmup, timed, card, **settings) -> dict:
     """Drive DynamicalCore.step_dynamics at C`n`/79 float32 with the launch
     counts set to 0 just before and read just after; check every
     prognostic interior is finite and every kernel ran exactly as often as
-    the configuration implies.  Returns the launch counts."""
+    the configuration implies (under the dynamic subcycle, as often as the
+    trip counts it took imply).  Returns the launch counts."""
     t0 = time.perf_counter()
     sizing, core, state = make_core(n, torch.float32, dt, **settings)
     torch.cuda.synchronize()
@@ -429,17 +479,24 @@ def run_path(tag, n, dt, warmup, timed, card, **settings) -> dict:
     log(f"[{tag}] C{n}/79 float32 {label} dt={dt:g}: set-up "
         f"{time.perf_counter() - t0:.2f} s")
     reset_launches()
-    for _ in range(warmup):
-        state = core.step_dynamics(state)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(timed):
-        state = core.step_dynamics(state)
-    torch.cuda.synchronize()
+    with TripCounts() as trips:
+        for _ in range(warmup):
+            state = core.step_dynamics(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state = core.step_dynamics(state)
+        torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / timed * 1e3
     launches = read_launches()
     check_finite(tag, state, sizing)
-    check_launches(tag, launches, core.config, warmup + timed)
+    if core.config.dynamic_tracer_subcycle:
+        log(f"[{tag}] dynamic subcycle: n_split_dyn {trips.trips} in "
+            f"{warmup + timed} steps")
+        check_launches(tag, launches, core.config, warmup + timed,
+                       tracer_trips=sum(trips.trips))
+    else:
+        check_launches(tag, launches, core.config, warmup + timed)
     log(f"[{tag}] info: {ms:.3f} ms/step, {dt / (ms / 1e3):.1f} sim-days/day "
         f"({timed} steps after {warmup} warm-up) on {card}")
     return launches
@@ -751,7 +808,7 @@ def diagnostics_records(config) -> list:
     return records
 
 
-def check_yaml_run(path, launches, card, sections=False) -> dict:
+def check_yaml_run(path, launches, card, sections=False, tag=9) -> dict:
     """The checks every phase-9 run passes: finite diagnostics in their
     format, a perf JSON with SYPD > 0 (and, with sections, each section's
     time > 0 and their sum within the step's), the restart where one is
@@ -792,7 +849,7 @@ def check_yaml_run(path, launches, card, sections=False) -> dict:
                 raise AssertionError(f"{name}: sections {t}")
         share = sum(sum(t[k] for k in keys) for t in times[1:]) / sum(
             t["mainloop"] for t in times[1:])
-        log(f"[9] {name}: sections "
+        log(f"[{tag}] {name}: sections "
             + ", ".join(f"{k} {np.mean([t[k] for t in times[1:]]) * 1e3:.3f}"
                         for k in keys)
             + f" ms/step, {share:.4f} of mainloop")
@@ -802,14 +859,14 @@ def check_yaml_run(path, launches, card, sections=False) -> dict:
         arrays = load_restart_arrays(config.restart_config.path)
         if len(arrays) != 32:
             raise AssertionError(f"{name}: restart holds {len(arrays)}")
-    check_launches(9, launches, config.dycore_config, steps)
+    check_launches(tag, launches, config.dycore_config, steps)
     ms = float(np.mean([t["mainloop"] for t in times[1:]])) * 1e3
     files = [os.path.relpath(os.path.join(d, f), work)
              for d, _, fs in os.walk(work) for f in fs]
     nbytes = sum(os.path.getsize(os.path.join(work, f)) for f in files)
     tops = sorted({f.split(os.sep)[0] + ("/" if os.sep in f else "")
                    for f in files})
-    log(f"[9] {name}: {steps} steps, {ms:.3f} ms/step (mainloop without "
+    log(f"[{tag}] {name}: {steps} steps, {ms:.3f} ms/step (mainloop without "
         f"step 1), SYPD {report['sypd']:.4f}, "
         f"{config.dt_atmos / (ms / 1e3):.1f} sim-days/day, launches a step "
         + "/".join(str(launches[k] // steps) for k in ("K-T", "K-S", "K-F"))
@@ -1030,6 +1087,301 @@ def run_yaml_configs(card) -> dict:
 
     return total
 
+# ---------------------------------------------------------------------------
+# phase 10: the dycore branches
+# ---------------------------------------------------------------------------
+
+BRANCHES = {
+    "kord 8": dict(kord_mt=8, kord_wz=8, kord_tr=8, kord_tm=-8),
+    "kord 10": dict(kord_mt=10, kord_wz=10, kord_tr=10, kord_tm=-10),
+    "do_skeb": dict(do_skeb=True),
+    "dynamic subcycle": dict(dynamic_tracer_subcycle=True),
+}
+
+
+def state_arrays(state) -> dict:
+    import dataclasses
+
+    return {f.name: getattr(state, f.name).cpu().numpy()
+            for f in dataclasses.fields(state)}
+
+
+# the field each remap mode iv is given in tests/test_torch_branches.py
+FIELD_OF_MODE = {-2: "w", -1: "u", 0: "qvapor", 1: "delz", 2: "pt"}
+
+
+def check_kord10_columns(arrays, core) -> None:
+    """remap_profile and map_single at kord 10, every remap mode, on the
+    card and on the CPU from the same columns (the compute domain of a
+    kord-10 step's output): every coefficient and remapped value within
+    1e-9 of the field's scale."""
+    from pace_torch.ops.map_single import map_single
+    from pace_torch.ops.remap_profile import remap_profile
+
+    c = (slice(None), slice(3, 15), slice(3, 15))
+    ak = core.grid_data.vertical.ak.cpu().numpy()
+    bk = core.grid_data.vertical.bk.cpu().numpy()
+    pe1 = arrays["pe"][c]
+    pe2 = np.concatenate(
+        [pe1[..., :1], ak[1:79] + bk[1:79] * pe1[..., -1:], pe1[..., -1:]],
+        -1)
+    worst = 0.0
+    for iv, name in FIELD_OF_MODE.items():
+        q = arrays[name][c]
+        qs = arrays["w"][c][..., -1] if iv == -2 else np.zeros(q.shape[:-1])
+        outs = []
+        for device in ("cuda", "cpu"):
+            t = on((qs, q, pe1[..., 1:] - pe1[..., :-1], pe1, pe2),
+                   torch.float64, device)
+            outs.append([*remap_profile(t[0], t[1], t[2], 12, 3, 10, iv),
+                         map_single(t[1], t[3], t[4], 12, 3, 10, iv,
+                                    qs=t[0])])
+        scale = float(np.abs(q).max())
+        err = max(float((g.cpu() - r).abs().max()) for g, r in zip(*outs))
+        worst = max(worst, err / scale)
+    ok = worst <= 1e-9
+    log(f"[10] kord 10 remap_profile and map_single, iv -2..2, on the same "
+        f"columns on the card and the CPU: worst rel err {worst:.3e} (bar "
+        f"1e-9) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kord 10 columns: {worst}")
+
+
+def run_branches(card) -> dict:
+    """Phase 10.  Returns the launch counts of the dynamic subcycle's C48
+    steps."""
+    for label, settings in BRANCHES.items():
+        t0 = time.perf_counter()
+        outs = []
+        for device in ("cuda", "cpu"):
+            _, core, state = make_core(12, torch.float64, 225.0, device,
+                                       **settings)
+            outs.append(state_arrays(core.step_dynamics(state)))
+        worst, err = interior_error(*outs, n=12)
+        if label == "kord 10":
+            # kord 10 branches on |2 a1 - (a2 + a3)| > |a2 - a3|, an exact
+            # tie wherever the monotonicity clamp set an interface to its
+            # cell's mean.  The card's exp, log and cumsum round otherwise
+            # than the CPU's in the last place, so at some ties the two
+            # steps take different branches: the step is reported, and the
+            # kord-10 operators are held on identical columns.
+            pt = [o["pt"][:, 3:15, 3:15] for o in outs]
+            moved = int((np.abs(pt[0] - pt[1]).max(-1)
+                         > 1e-9 * np.abs(pt[1]).max()).sum())
+            log(f"[10] C12/79 float64 kord 10: card against CPU, worst field "
+                f"{worst} rel err {err:.3e}; pt differs by more than 1e-9 "
+                f"of its scale in {moved} of {pt[1][..., 0].size} columns "
+                f"({time.perf_counter() - t0:.1f} s both steps)")
+            check_kord10_columns(outs[0], core)
+        else:
+            ok = err <= 1e-9
+            log(f"[10] C12/79 float64 {label}: card against CPU, worst field "
+                f"{worst} rel err {err:.3e} (bar 1e-9) "
+                f"{'ok' if ok else 'FAIL'} "
+                f"({time.perf_counter() - t0:.1f} s both steps)")
+            if not ok:
+                raise AssertionError(f"{label}: card vs CPU {worst} {err}")
+        if settings.get("do_skeb"):
+            diss = outs[0]["diss_estd"][:, 3:15, 3:15]
+            ok = bool(np.isfinite(diss).all()) and float(
+                np.abs(diss).max()) > 0.0
+            log(f"[10] do_skeb: diss_estd on the compute domain finite, "
+                f"largest |value| {float(np.abs(diss).max()):.4e} (bar > 0) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("do_skeb: diss_estd")
+        launches = run_path(10, 48, 450.0, 1, 1, card, k_split=1, n_split=2,
+                            **settings)
+        if settings.get("dynamic_tracer_subcycle"):
+            subcycle = launches
+    return subcycle
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the JW day-1 anchor
+# ---------------------------------------------------------------------------
+
+def check_jw_day1() -> None:
+    from pace_torch.validation import jw_day1
+
+    with open(os.path.join(REPO, "tests", "golden",
+                           "jw_day1_c12_f64.json")) as f:
+        record = json.load(f)
+    t0 = time.perf_counter()
+    got = jw_day1.run_day1("cuda", torch.float64)
+    wall = time.perf_counter() - t0
+    worst, bad = jw_day1.check(record["digest"], got)
+    field = max(worst, key=worst.get)
+    log(f"[11] JW day 1, C12/79 float64 k_split=1 n_split=4 dt=450, "
+        f"{jw_day1.STEPS} steps on the card in {wall:.1f} s: worst relative "
+        f"difference from the record {worst[field]:.3e} ({field}; bar "
+        f"{jw_day1.RTOL:g}); per entry "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+        + f" {'FAIL' if bad else 'ok'}")
+    if bad:
+        raise AssertionError(f"JW day 1: {bad} above {jw_day1.RTOL}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the Fortran restart start, the GEOS wrapper, the savepoints
+# ---------------------------------------------------------------------------
+
+# restart variable -> its file, as the Fortran model writes them
+RESTART_FILE = {"u": "fv_core.res", "v": "fv_core.res", "W": "fv_core.res",
+                "DZ": "fv_core.res", "T": "fv_core.res",
+                "delp": "fv_core.res", "phis": "fv_core.res",
+                "ua": "fv_core.res", "va": "fv_core.res"}
+
+
+def write_fortran_restart(dirname, arrays, n, h=3) -> None:
+    """The Fortran model's restart files for the state `arrays` (numpy,
+    the port's padded layout): fv_core.res and fv_tracer.res for each of
+    the six tiles, each variable (Time, z, y, x) or (Time, y, x), and
+    coupler.res."""
+    from scipy.io import netcdf_file
+
+    from pace_torch.utils.legacy_restart import RESTART_TO_FIELD
+
+    for tile in range(6):
+        files = {}
+        for name, (field, (ex, ey)) in RESTART_TO_FIELD.items():
+            if field not in arrays:
+                continue
+            a = arrays[field][tile, h:h + n + ex, h:h + n + ey]
+            if a.ndim == 3:
+                data = np.transpose(a, (2, 1, 0))[None]
+                dims = ("Time", "zaxis_1", f"yaxis_{1 + ey}",
+                        f"xaxis_{1 + ex}")
+            else:
+                data, dims = a.T[None], ("Time", "yaxis_1", "xaxis_1")
+            files.setdefault(RESTART_FILE.get(name, "fv_tracer.res"),
+                             {})[name] = (dims, data)
+        for fname, variables in files.items():
+            path = os.path.join(dirname, f"{fname}.tile{tile + 1}.nc")
+            with netcdf_file(path, "w") as nc:
+                for name, (dims, data) in variables.items():
+                    for d, size in zip(dims, data.shape):
+                        if d not in nc.dimensions:
+                            nc.createDimension(d, size)
+                    nc.createVariable(name, "d", dims)[:] = data
+    with open(os.path.join(dirname, "coupler.res"), "w") as f:
+        f.write("     2        (Calendar: gregorian=3)\n"
+                "  2000     1     1     0     0     0        Model start "
+                "time\n"
+                "  2000     1     1     0     0     0        Current model "
+                "time\n")
+
+
+# tests/test_geos_wrapper.py's namelist
+GEOS_NML = {"fv_core_nml": {"npx": 13, "npy": 13, "npz": 79,
+                            "do_sat_adj": False, "dt_atmos": 225}}
+# the reference's savepoints of a k_split = n_split = 1 step, in order
+SAVEPOINTS = [
+    "FVDynamics-In", "C_SW-In", "C_SW-Out", "D_SW-In", "D_SW-Out",
+    "Tracer2D1L-In", "Tracer2D1L-Out", "Remapping-In", "Remapping-Out",
+    "FVDynamics-Out",
+]
+
+
+def run_entry_points(card) -> None:
+    """Phase 12."""
+    import tempfile
+
+    from pace_torch.driver.driver import DriverConfig
+    from pace_torch.driver.restart import load_restart_arrays
+    from pace_torch.models.fv3.dynamics import DynamicalCore
+    from pace_torch.models.fv3.geos_wrapper import (
+        _IN_FIELDS,
+        GeosDycoreWrapper,
+    )
+    from pace_torch.models.fv3.init.baroclinic import init_baroclinic_state
+    from pace_torch.models.fv3.state import TRACER_NAMES, DycoreState
+    from pace_torch.utils.checkpointer import (
+        SnapshotCheckpointer,
+        checkpointing,
+    )
+    from pace_torch.utils.gridtools import GridSizing
+
+    n, h = 12, 3
+    sizing = GridSizing(n, 79)
+    start = state_arrays(init_baroclinic_state(sizing, device="cpu",
+                                               dtype=torch.float64))
+    c = (slice(None), slice(h, h + n), slice(h, h + n))
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        t0 = time.perf_counter()
+        restart = os.path.join(tmp, "fortran_restart")
+        os.makedirs(restart)
+        write_fortran_restart(restart, start, n)
+        path = yaml_copy(
+            "baroclinic_c12.yaml", os.path.join(tmp, "from_fortran"),
+            minutes=0, seconds=450,
+            initialization=dict(type="fortran_restart",
+                                config=dict(path=restart)))
+        launches = run_cli(path)
+        check_yaml_run(path, launches, card, tag=12)
+        config = DriverConfig.from_yaml(path)
+        first = diagnostics_records(config)[0]
+        same = all(np.array_equal(first[k], start[k][c])
+                   for k in ("pt", "ua", "va"))
+        final = load_restart_arrays(config.restart_config.path)
+        finite = all(np.isfinite(final[k][c]).all()
+                     for k in ("pt", "delp", "u", "v", "w", "ps", "qvapor"))
+        log(f"[12] fortran_restart start of baroclinic_c12.yaml from "
+            f"{len(os.listdir(restart))} files written with scipy: the first "
+            f"diagnostics (pt, ua, va) equal the written state: {same}; "
+            f"after {config.n_timesteps()} steps the restart's interiors "
+            f"are finite: {finite} "
+            f"({time.perf_counter() - t0:.1f} s) "
+            f"{'ok' if same and finite else 'FAIL'}")
+        if not (same and finite):
+            raise AssertionError("fortran_restart start")
+
+    wrapper = GeosDycoreWrapper(GEOS_NML, dtype=torch.float64)
+    fields = {name: start[name] for name in _IN_FIELDS}
+    q = np.stack([start[name] for name in TRACER_NAMES], -1)
+    out = wrapper(q, **fields)
+    core = DynamicalCore(wrapper.dycore_config, sizing,
+                         wrapper.dycore.grid_data, 225.0)
+    want = state_arrays(core.step_dynamics(
+        DycoreState.from_numpy(start, "cuda", torch.float64)))
+    differ = [k for k in _IN_FIELDS if not np.array_equal(
+        out[k], want[k], equal_nan=True)]
+    differ += [k for i, k in enumerate(TRACER_NAMES) if not np.array_equal(
+        out["q"][..., i], want[k], equal_nan=True)]
+    times = wrapper.perf_collector.timestep_timer.times
+    log(f"[12] GeosDycoreWrapper C12/79 float64 on the card: "
+        f"{len(_IN_FIELDS) + len(TRACER_NAMES)} outputs against a "
+        f"DynamicalCore step on the same inputs, fields that differ: "
+        f"{differ or 'none'}; "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items())
+        + f" {'ok' if not differ else 'FAIL'}")
+    if differ:
+        raise AssertionError(f"GEOS wrapper differs in {differ}")
+
+    class Order(SnapshotCheckpointer):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __call__(self, savepoint_name, **kwargs):
+            self.names.append(savepoint_name)
+            super().__call__(savepoint_name, **kwargs)
+
+    order = Order()
+    with checkpointing(order):
+        core.step_dynamics(DycoreState.from_numpy(start, "cuda",
+                                                  torch.float64))
+    ok = order.names == SAVEPOINTS
+    shapes = {v[0].shape for calls in order.data.values()
+              for v in calls.values()}
+    log(f"[12] one C12 step under a SnapshotCheckpointer on the card: "
+        f"savepoints {order.names} (the reference's order: {ok}), arrays "
+        f"cut to {sorted(shapes)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"savepoints {order.names}")
+
+
 KERNELS = {
     "K-T": dict(name="fvtp2d transport_batched", source="pace_torch/csrc/fvtp2d.cu",
                 replaces="pace_tpu/ops/pallas/fvtp2d_pallas.py:217"),
@@ -1097,12 +1449,26 @@ def main() -> None:
     # ---- phase 9: the yaml entry point
     t9 = time.perf_counter()
     yaml_launches = run_yaml_configs(card)
-    log(f"[9] phase 9 took {time.perf_counter() - t9:.0f} s; all phases "
+    log(f"[9] phase 9 took {time.perf_counter() - t9:.0f} s")
+
+    # ---- phase 10: the dycore branches
+    t10 = time.perf_counter()
+    subcycle = run_branches(card)
+    log(f"[10] phase 10 took {time.perf_counter() - t10:.0f} s")
+
+    # ---- phase 11: the JW day-1 anchor
+    check_jw_day1()
+
+    # ---- phase 12: the other entry points
+    t12 = time.perf_counter()
+    run_entry_points(card)
+    log(f"[12] phase 12 took {time.perf_counter() - t12:.0f} s; all phases "
         f"took {time.perf_counter() - started:.0f} s")
 
     kernels = [
         dict(**KERNELS[k], route="cuda", launches=launches[k],
              launches_coupled=coupled[k], launches_yaml=yaml_launches[k],
+             launches_subcycle=subcycle[k],
              max_abs_err=results[k][0],
              ms=results[k][1],
              plain_ms=results[k][2], bound_ms=results[k][3],

@@ -4,26 +4,24 @@ Port of `pace_tpu.driver.initialization` (reference ai2cm/pace
 driver/pace/driver/initialization.py): an Initializer ABC behind an
 InitializerSelector hydrated from {"type": ..., "config": {...}}:
 "baroclinic" (Jablonowski & Williamson 2006), "tropicalcyclone" (Reed &
-Jablonowski), "restart" (a restart written by either package) and
-"predefined" (a DycoreState built by the caller).  "fortran_restart" raises
-`NotImplementedError`.
+Jablonowski), "restart" (a restart written by either package), "fortran_restart"
+(the Fortran model's tile-sharded NetCDF restart files) and "predefined" (a
+DycoreState built by the caller).
 """
 
 from __future__ import annotations
 
 import abc
 import dataclasses
+import logging
+import os
 from datetime import datetime
+from typing import Optional
 
 from pace_torch.driver._from_dict import ConfigError, from_dict
-from pace_torch.models.fv3.state import DycoreState
+from pace_torch.models.fv3.state import DycoreState, zeros_numpy
 
-# initialisation types of the reference package that the port does not have
-# yet, with the ROADMAP queue item that holds each
-UNPORTED_TYPES = {
-    "fortran_restart": "ROADMAP Queue 1 item 10 (legacy restart files, "
-                       "utils/legacy_restart.py)",
-}
+logger = logging.getLogger("pace_torch.driver")
 
 
 class Initializer(abc.ABC):
@@ -90,6 +88,45 @@ class RestartInit(Initializer):
 
 
 @dataclasses.dataclass
+class FortranRestartInit(Initializer):
+    """Start from the Fortran model's `.res` tile restart files
+    (fv_core.res.tile*.nc etc.; reference driver/pace/driver/
+    initialization.py:225 FortranRestartInit), read by
+    utils/legacy_restart.open_restart.  Fields the files do not hold start
+    at zero."""
+
+    path: str = "RESTART"
+    label: str = ""
+    start_time_str: Optional[str] = None  # coupler.res wins when present
+
+    @property
+    def start_time(self) -> datetime:
+        if self.start_time_str is not None:
+            return datetime.fromisoformat(self.start_time_str)
+        from pace_torch.utils.legacy_restart import (
+            COUPLER_RES_NAME,
+            get_current_date_from_coupler_res,
+        )
+
+        coupler = os.path.join(self.path, COUPLER_RES_NAME)
+        if os.path.exists(coupler):
+            return get_current_date_from_coupler_res(coupler)
+        return datetime(2000, 1, 1)
+
+    def get_dycore_state(self, sizing, device, dtype):
+        from pace_torch.utils.legacy_restart import open_restart
+
+        arrays = open_restart(self.path, sizing, label=self.label,
+                              dtype=None)
+        arrays.pop("time", None)
+        # surface-wind diagnostics are not DycoreState fields
+        arrays.pop("u_srf", None)
+        arrays.pop("v_srf", None)
+        return DycoreState.from_numpy({**zeros_numpy(sizing), **arrays},
+                                      device, dtype)
+
+
+@dataclasses.dataclass
 class PredefinedStateInit(Initializer):
     """Start from an already-constructed DycoreState (reference
     driver/pace/driver/initialization.py:381 PredefinedStateInit), moved to
@@ -119,6 +156,7 @@ REGISTERED = {
     "baroclinic": BaroclinicInit,
     "tropicalcyclone": TropicalCycloneConfig,
     "restart": RestartInit,
+    "fortran_restart": FortranRestartInit,
     "predefined": PredefinedStateInit,
 }
 
@@ -139,16 +177,14 @@ class InitializerSelector(Initializer):
 
     @classmethod
     def from_dict(cls, config: dict):
+        # as the reference's registry, read only `type` and `config`
         unknown = sorted(set(config) - {"type", "config"})
         if unknown:
-            raise ConfigError(f"initialization: unknown keys {unknown}")
+            logger.warning("initialization: ignoring unknown keys %s",
+                           unknown)
         type_name = config.get("type")
         if type_name is None:
             raise ConfigError("initialization: 'type' key required")
-        if type_name in UNPORTED_TYPES:
-            raise NotImplementedError(
-                f"initialization type {type_name!r} is not ported: "
-                f"{UNPORTED_TYPES[type_name]}")
         if type_name not in REGISTERED:
             raise ConfigError(
                 f"unknown initialization type {type_name!r}; registered: "

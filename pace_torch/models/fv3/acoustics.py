@@ -18,6 +18,7 @@ from pace_torch.ops.del2cubed import hyperdiffusion
 from pace_torch.ops.stencil_utils import shift
 from pace_torch.parallel import halo as halo_mod
 from pace_torch.utils import constants
+from pace_torch.utils.checkpointer import checkpoint
 
 HUGE_R = 1.0e40
 
@@ -116,12 +117,17 @@ def acoustic_dynamics(
         if it == n_split - 1 and end_step and config.use_old_omega:
             pem = riemann.interfaces(ptop, s["delp"])
 
-        # C-grid half step
+        # C-grid half step (reference dyn_core.py:626-646 _checkpoint_csw)
+        checkpoint("C_SW-In", sizing=(n, h), delp=s["delp"], pt=s["pt"],
+                   u=s["u"], v=s["v"], w=s["w"], uc=s["uc"], vc=s["vc"])
         (delpc, ptc, s["uc"], s["vc"], s["ua"], s["va"], ut, vt, divgd,
          s["omga"], s["delp"], s["pt"], s["w"]) = c_sw_mod.c_sw(
             s["delp"], s["pt"], s["u"], s["v"], s["w"], s["omga"],
             gd, n, h, dt2, config.nord,
         )
+        checkpoint("C_SW-Out", sizing=(n, h), delpc=delpc, ptc=ptc,
+                   uc=s["uc"], vc=s["vc"], ua=s["ua"], va=s["va"],
+                   omga=s["omga"])
 
         if config.nord > 0:
             divgd = halo_mod.halo_update_scalar(divgd, corner)
@@ -146,7 +152,10 @@ def acoustic_dynamics(
             topo, s["uc"], s["vc"], "x_iface", "y_iface"
         )
 
-        # D-grid full step
+        # D-grid full step (reference dyn_core.py:648-668 _checkpoint_dsw)
+        checkpoint("D_SW-In", sizing=(n, h), delp=s["delp"], pt=s["pt"],
+                   u=s["u"], v=s["v"], w=s["w"], uc=s["uc"], vc=s["vc"],
+                   divgd=divgd)
         out = d_sw_mod.d_sw(
             s["delp"], s["pt"], s["u"], s["v"], s["w"], s["uc"], s["vc"],
             s["ua"], s["va"], divgd, s["mfxd"], s["mfyd"], s["cxd"],
@@ -162,6 +171,9 @@ def acoustic_dynamics(
         crx, cry, xfx, yfx = out["crx"], out["cry"], out["xfx"], out["yfx"]
         delpc = out["delpc"]
         ut, vt = out["ut"], out["vt"]
+        checkpoint("D_SW-Out", sizing=(n, h), delp=s["delp"], pt=s["pt"],
+                   u=s["u"], v=s["v"], w=s["w"], mfxd=s["mfxd"],
+                   mfyd=s["mfyd"])
 
         s["delp"], s["pt"], s["q_con"] = hupd(
             s["delp"], s["pt"], s["q_con"]

@@ -2,16 +2,20 @@
 
 The same fields and defaults as `pace_tpu.models.fv3.config` (reference
 ai2cm/pace fv3core/pace/fv3core/_config.py:155), and the per-level "column
-namelist" damping parameters (d_sw.py:get_column_namelist).  Unlike the
-reference package's, `from_dict` is strict: an unknown key raises.
+namelist" damping parameters (d_sw.py:get_column_namelist).  As in the
+reference package, `from_dict` drops an unknown key, with a warning that
+names it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Dict
 
 import numpy as np
+
+logger = logging.getLogger("pace_torch.config")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,8 +120,8 @@ class DynamicalCoreConfig:
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = sorted(set(d) - known)
         if unknown:
-            raise ValueError(f"unknown DynamicalCoreConfig keys: {unknown}")
-        return cls(**d)
+            logger.warning("dycore_config: ignoring unknown keys %s", unknown)
+        return cls(**{k: v for k, v in d.items() if k in known})
 
 
 def get_column_namelist(config: DynamicalCoreConfig, npz: int) -> Dict[str, np.ndarray]:

@@ -6,7 +6,10 @@ pt to potential-density temperature -> k_split x { acoustic substeps ->
 tracer advection -> vertical remapping } -> negative-tracer adjustment ->
 D-grid to lat/lon winds.  The step runs eagerly on the device of its
 state; the three hand-written CUDA kernels (transport, SIM1, fillz) run on
-a CUDA device, their plain torch versions on the CPU.
+a CUDA device, their plain torch versions on the CPU.  The step carries the
+reference's named savepoints (utils/checkpointer.py) and per-stage
+finiteness checks (utils/debug.py); both return at once unless a
+checkpointer is active or the debug switch is set.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from pace_torch.ops import tracer_advection as tradv
 from pace_torch.ops.del2cubed import hyperdiffusion
 from pace_torch.parallel import halo as halo_mod
 from pace_torch.parallel.topology import get_topology
+from pace_torch.utils.checkpointer import checkpoint
+from pace_torch.utils.debug import nancheck
 from pace_torch.utils.gridtools import GridSizing
 
 
@@ -42,8 +47,6 @@ class DynamicalCore:
             raise NotImplementedError("hydrostatic mode is not implemented")
         if config.consv_te > 0:
             raise NotImplementedError("consv_te > 0 needs a global reduction")
-        if config.dynamic_tracer_subcycle:
-            raise NotImplementedError("dynamic_tracer_subcycle is not ported")
         self.config = config
         self.sizing = sizing
         self.grid_data = grid_data
@@ -74,8 +77,12 @@ class DynamicalCore:
         )
 
 
-def _preamble(s: dict, config: DynamicalCoreConfig):
+def _preamble(s: dict, config: DynamicalCoreConfig, n: int, h: int):
     """fv_setup + pt -> potential-density temperature."""
+    # reference fv_dynamics.py:321-341 _checkpoint_fvdynamics
+    checkpoint("FVDynamics-In", sizing=(n, h), u=s["u"], v=s["v"], w=s["w"],
+               delp=s["delp"], pt=s["pt"], delz=s["delz"],
+               qvapor=s["qvapor"])
     q_con, cvm, pkz, cappa, dp1 = moist_cv.fv_setup(
         s["qvapor"], s["qliquid"], s["qrain"], s["qsnow"], s["qice"],
         s["qgraupel"], s["pt"], s["delp"], s["delz"],
@@ -84,6 +91,7 @@ def _preamble(s: dict, config: DynamicalCoreConfig):
     s["q_con"] = q_con
     s["pkz"] = pkz
     s["pt"] = s["pt"] * (1.0 + dp1) * (1.0 - q_con) / pkz
+    nancheck("fv_setup", n, h, pt=s["pt"], q_con=q_con, pkz=pkz)
     wsd = torch.zeros_like(s["ps"])
     return s, cappa, wsd
 
@@ -93,11 +101,20 @@ def _phase_tracer_advection(s: dict, dp_initial, gd, topo, n: int, h: int,
     if not config.z_tracer:
         raise NotImplementedError("z_tracer=False")
     advected = {name: s[name] for name in TRACER_NAMES[:NQ]}
+    # reference fv_dynamics.py:377-398 _checkpoint_tracer_advection
+    checkpoint("Tracer2D1L-In", sizing=(n, h), qvapor=advected["qvapor"],
+               qliquid=advected["qliquid"], dp1=dp_initial,
+               mfxd=s["mfxd"], mfyd=s["mfyd"])
     advected = tradv.tracer_advection(
         advected, dp_initial, s["mfxd"], s["mfyd"], s["cxd"],
         s["cyd"], gd, topo, n, h, config.hord_tr,
+        dynamic_subcycle=config.dynamic_tracer_subcycle,
     )
     s.update(advected)
+    nancheck("tracer_advection", n, h,
+             **{k: advected[k] for k in list(advected)[:3]})
+    checkpoint("Tracer2D1L-Out", sizing=(n, h), qvapor=s["qvapor"],
+               qliquid=s["qliquid"], mfxd=s["mfxd"], mfyd=s["mfyd"])
     return s
 
 
@@ -105,6 +122,8 @@ def _phase_remap(s: dict, cappa, wsd, gd, config: DynamicalCoreConfig,
                  topo, n: int, h: int, last_step: bool, mdt: float,
                  vp: dict):
     """Vertical remapping + (last step) omega."""
+    checkpoint("Remapping-In", sizing=(n, h), pt=s["pt"], delp=s["delp"],
+               delz=s["delz"], u=s["u"], v=s["v"], w=s["w"])
     tracers = {name: s[name] for name in remapping.REMAP_TRACERS}
     sat_fn = None
     if config.do_sat_adj:
@@ -126,6 +145,10 @@ def _phase_remap(s: dict, cappa, wsd, gd, config: DynamicalCoreConfig,
                  "pkz", "pk", "pe", "ps"):
         s[name] = out[name]
     cappa = out["cappa"]
+    checkpoint("Remapping-Out", sizing=(n, h), pt=s["pt"], delp=s["delp"],
+               delz=s["delz"], u=s["u"], v=s["v"], w=s["w"])
+    nancheck("lagrangian_to_eulerian", n, h, pt=s["pt"],
+             delp=s["delp"], u=s["u"], v=s["v"], w=s["w"], pkz=s["pkz"])
 
     if last_step:
         # omega from w, then hyperdiffuse it
@@ -154,6 +177,10 @@ def _postlude(s: dict, gd, topo, n: int, h: int,
     )
     s["ua"], s["va"] = ua, va
     s["u"], s["v"] = u, v
+    nancheck("cubed_to_latlon", n, h, ua=ua, va=va, pt=s["pt"])
+    checkpoint("FVDynamics-Out", sizing=(n, h), u=s["u"], v=s["v"],
+               w=s["w"], delp=s["delp"], pt=s["pt"], delz=s["delz"],
+               qvapor=s["qvapor"])
     return DycoreState(**s)
 
 
@@ -166,7 +193,7 @@ def fv_dynamics(
                 else contextlib.nullcontext())
 
     s = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
-    s, cappa, wsd = _preamble(s, config)
+    s, cappa, wsd = _preamble(s, config, n, h)
     k_split = config.k_split
     mdt = timestep / k_split
     for k_loop in range(k_split):
@@ -176,6 +203,8 @@ def fv_dynamics(
                 s, cappa, gd, col, config, topo, n, h, mdt, k_loop + 1, wsd,
                 vp,
             )
+            nancheck("acoustic_dynamics", n, h, u=s["u"], v=s["v"],
+                     w=s["w"], delp=s["delp"], pt=s["pt"], delz=s["delz"])
         with section("TracerAdvection"):
             s = _phase_tracer_advection(s, dp_initial, gd, topo, n, h,
                                         config)

@@ -108,8 +108,6 @@ def d_sw(
     q_con, heat_source, diss_est, ut_in, vt_in, gd, col, config, n, h, dt,
 ):
     """One D-grid shallow water step. Returns a dict of updated fields."""
-    if config.do_skeb:
-        raise NotImplementedError("do_skeb is not ported")
     hz, ang = gd.horizontal, gd.angle
     rarea = hz.rarea[..., None]
     dx = hz.dx[..., None]
@@ -236,7 +234,7 @@ def d_sw(
         col["nord_v"], damp_vt_col, n, h,
     )
 
-    if col["d_con"][0] > DCON_THRESHOLD:
+    if col["d_con"][0] > DCON_THRESHOLD or config.do_skeb:
         vxd = torch.zeros_like(vort_damped_b)
         vyd = torch.zeros_like(vort_damped_b)
         dcol = vort_damped_b - shift(vort_damped_b, 1)
@@ -266,10 +264,15 @@ def d_sw(
         )
         d_con_k = su.column(col["d_con"], w)
         heat_mask = d_con_k > DCON_THRESHOLD
-        heat_s = torch.where(
-            heat_mask, delp * (heat_s - d_con_k * dampterm), heat_s
-        )
+        if config.do_skeb:
+            heat_s = delp * (heat_s - d_con_k * dampterm)
+        else:
+            heat_s = torch.where(
+                heat_mask, delp * (heat_s - d_con_k * dampterm), heat_s
+            )
         heat_source = su.region_add(heat_source, ci, ci, heat_s)
+        if config.do_skeb:
+            diss_est = diss_est - dampterm
 
     damp_vt_mask = su.level_mask(col["damp_vt"] > 1e-5, w)
     u_upd = torch.where(damp_vt_mask, u + vt_d, u)

@@ -6,7 +6,7 @@ interface values via a vertical tridiagonal solve (a loop over k on whole
 horizontal slabs), then kord/iv-dependent monotonicity constraints.
 
 All tensors have k LAST: a4_1/delp (..., nz).  Returns (a4_1..a4_4).
-Ported kord: 9; iv (mode): -2, -1, 0, 1.  Other values raise.
+kord: < 9, 9, 10; iv (mode): -2, -1, 0, 1, 2.  Other values raise.
 """
 
 from __future__ import annotations
@@ -116,10 +116,10 @@ def _posdef_constraint_iv0(a1, a2, a3, a4):
 
 def remap_profile(qs, a4_1, delp, n, h, kord: int, iv: int, qmin: float = 0.0):
     """Returns constrained (a4_1, a4_2, a4_3, a4_4) PPM coefficients."""
-    if kord != 9:
-        raise NotImplementedError(f"kord {kord}: only kord 9 is ported")
-    if iv not in (-2, -1, 0, 1):
-        raise NotImplementedError(f"remap mode iv={iv} is not ported")
+    if kord > 10:
+        raise NotImplementedError(f"kord {kord}")
+    if iv not in (-2, -1, 0, 1, 2):
+        raise NotImplementedError(f"remap mode iv={iv}")
     nz = a4_1.shape[-1]
     q_if = _spline_interfaces(a4_1, delp, qs, iv)
 
@@ -182,13 +182,21 @@ def remap_profile(qs, a4_1, delp, n, h, kord: int, iv: int, qmin: float = 0.0):
         a4_2 = upd_k(a4_2, torch.clamp(a4_2, min=0.0), 0)
     elif iv == -1:
         a4_2 = upd_k(a4_2, torch.where(a4_2 * a4_1 <= 0.0, 0.0, a4_2), 0)
+    elif iv == 2:
+        a4_2 = upd_k(a4_2, a4_1, 0)
+        a4_3 = upd_k(a4_3, a4_1, 0)
+        a4_4 = upd_k(a4_4, torch.zeros_like(a4_4), 0)
     a44_re = 3.0 * (2.0 * a4_1 - (a4_2 + a4_3))
-    a4_4 = upd_k(a4_4, a44_re, 0, 1)
-    p2n, p3n, p4n = _posdef_constraint_iv1(a4_1, a4_2, a4_3, a4_4)
-    a4_2n = upd_k(a4_2, p2n, 0)
-    a4_3n = upd_k(a4_3, p3n, 0)
-    a4_4n = upd_k(a4_4, p4n, 0)
-    a4_2, a4_3, a4_4 = a4_2n, a4_3n, a4_4n
+    # iv = 2 keeps its flat top level and skips the positive-definite fix
+    if iv == 2:
+        a4_4 = upd_k(a4_4, a44_re, 1)
+    else:
+        a4_4 = upd_k(a4_4, a44_re, 0, 1)
+        p2n, p3n, p4n = _posdef_constraint_iv1(a4_1, a4_2, a4_3, a4_4)
+        a4_2n = upd_k(a4_2, p2n, 0)
+        a4_3n = upd_k(a4_3, p3n, 0)
+        a4_4n = upd_k(a4_4, p4n, 0)
+        a4_2, a4_3, a4_4 = a4_2n, a4_3n, a4_4n
     r2n, r3n, r4n = _remap_constraint(a4_1, a4_2, a4_3, a4_4, extm)
     a4_2n = upd_k(a4_2, r2n, 1)
     a4_3n = upd_k(a4_3, r3n, 1)
@@ -202,28 +210,65 @@ def remap_profile(qs, a4_1, delp, n, h, kord: int, iv: int, qmin: float = 0.0):
     g_p2 = torch.cat([gam[..., 2:], gam[..., -2:]], -1)      # gam[k+2]
     g_m1 = torch.cat([gam[..., :1], gam[..., :-1]], -1)      # gam[k-1]
     a1i, a2i, a3i = a4_1, a4_2, a4_3
-    pmp_1 = a1i - 2.0 * g_p1
-    lac_1 = pmp_1 + 1.5 * g_p2
-    pmp_2 = a1i + 2.0 * gam
-    lac_2 = pmp_2 - 1.5 * g_m1
-    e = extm
-    e_m1 = torch.cat([extm[..., :1], extm[..., :-1]], -1)
-    e_p1 = torch.cat([extm[..., 1:], extm[..., -1:]], -1)
-    flat = torch.logical_and(e, torch.logical_or(e_m1, e_p1))
-    if qmin > 0.0:
-        flat = torch.logical_or(flat, torch.logical_and(e, a1i < qmin))
-    a44_try = 6.0 * a1i - 3.0 * (a2i + a3i)
-    limit = torch.abs(a44_try) > torch.abs(a2i - a3i)
-    tmin1, tmax1 = _minmax3(a1i, pmp_1, lac_1)
-    a2_lim = torch.minimum(torch.maximum(a2i, tmin1), tmax1)
-    tmin2, tmax2 = _minmax3(a1i, pmp_2, lac_2)
-    a3_lim = torch.minimum(torch.maximum(a3i, tmin2), tmax2)
-    a2n = torch.where(flat, a1i, torch.where(limit, a2_lim, a2i))
-    a3n = torch.where(flat, a1i, torch.where(limit, a3_lim, a3i))
-    a4n = torch.where(
-        flat, 0.0,
-        torch.where(limit, 6.0 * a1i - 3.0 * (a2n + a3n), a44_try),
-    )
+    if kord < 9:
+        pmp_1 = a1i - g_p1
+        lac_1 = pmp_1 + 1.5 * g_p2
+        tmin, tmax = _minmax3(a1i, pmp_1, lac_1)
+        a2n = torch.minimum(torch.maximum(a2i, tmin), tmax)
+        pmp_2 = a1i + 2.0 * g_p1
+        lac_2 = pmp_2 - 1.5 * g_m1
+        tmin, tmax = _minmax3(a1i, pmp_2, lac_2)
+        a3n = torch.minimum(torch.maximum(a3i, tmin), tmax)
+        a4n = 3.0 * (2.0 * a1i - (a2n + a3n))
+    elif kord == 9:
+        pmp_1 = a1i - 2.0 * g_p1
+        lac_1 = pmp_1 + 1.5 * g_p2
+        pmp_2 = a1i + 2.0 * gam
+        lac_2 = pmp_2 - 1.5 * g_m1
+        e = extm
+        e_m1 = torch.cat([extm[..., :1], extm[..., :-1]], -1)
+        e_p1 = torch.cat([extm[..., 1:], extm[..., -1:]], -1)
+        flat = torch.logical_and(e, torch.logical_or(e_m1, e_p1))
+        if qmin > 0.0:
+            flat = torch.logical_or(flat, torch.logical_and(e, a1i < qmin))
+        a44_try = 6.0 * a1i - 3.0 * (a2i + a3i)
+        limit = torch.abs(a44_try) > torch.abs(a2i - a3i)
+        tmin1, tmax1 = _minmax3(a1i, pmp_1, lac_1)
+        a2_lim = torch.minimum(torch.maximum(a2i, tmin1), tmax1)
+        tmin2, tmax2 = _minmax3(a1i, pmp_2, lac_2)
+        a3_lim = torch.minimum(torch.maximum(a3i, tmin2), tmax2)
+        a2n = torch.where(flat, a1i, torch.where(limit, a2_lim, a2i))
+        a3n = torch.where(flat, a1i, torch.where(limit, a3_lim, a3i))
+        a4n = torch.where(
+            flat, 0.0,
+            torch.where(limit, 6.0 * a1i - 3.0 * (a2n + a3n), a44_try),
+        )
+    else:  # kord 10: limit where the cell or a neighbour is an extremum
+        pmp_1 = a1i - 2.0 * g_p1
+        lac_1 = pmp_1 + 1.5 * g_p2
+        pmp_2 = a1i + 2.0 * gam
+        lac_2 = pmp_2 - 1.5 * g_m1
+        tmin2, tmax2 = _minmax3(a1i, pmp_1, lac_1)
+        tmin3, tmax3 = _minmax3(a1i, pmp_2, lac_2)
+        lim2 = torch.minimum(torch.maximum(a2i, tmin2), tmax2)
+        lim3 = torch.minimum(torch.maximum(a3i, tmin3), tmax3)
+        n5 = torch.logical_or(
+            torch.cat([ext5[..., :1], ext5[..., :-1]], -1),
+            torch.cat([ext5[..., 1:], ext5[..., -1:]], -1),
+        )
+        n6 = torch.logical_or(
+            torch.cat([ext6[..., :1], ext6[..., :-1]], -1),
+            torch.cat([ext6[..., 1:], ext6[..., -1:]], -1),
+        )
+        a2n = torch.where(
+            ext5, torch.where(n5, a1i, torch.where(n6, lim2, a2i)),
+            torch.where(torch.logical_and(ext6, n5), lim2, a2i),
+        )
+        a3n = torch.where(
+            ext5, torch.where(n5, a1i, torch.where(n6, lim3, a3i)),
+            torch.where(torch.logical_and(ext6, n5), lim3, a3i),
+        )
+        a4n = 3.0 * (2.0 * a1i - (a2n + a3n))
     if iv == 0:
         a2n, a3n, a4n = _posdef_constraint_iv0(a1i, a2n, a3n, a4n)
     a4_2 = torch.where(interior, a2n, a4_2)

@@ -1,10 +1,14 @@
 """Sub-cycled 2D tracer advection (tracer_2d_1l).
 
 Port of `pace_tpu.ops.tracer_advection` (reference ai2cm/pace
-fv3core/pace/fv3core/stencils/tracer_2d_1l.py `TracerAdvection`) with the
-reference's fixed Courant bound cmax = 2.0, i.e. exactly 3 substeps.  The
-tracers stay stacked (T, 6, N, N, nz) through all substeps, so each
-substep is one batched transport call.
+fv3core/pace/fv3core/stencils/tracer_2d_1l.py `TracerAdvection`).  By
+default the Courant bound is the reference's fixed cmax = 2.0, i.e. exactly
+3 substeps.  `dynamic_subcycle=True` takes the Fortran model's
+data-dependent split instead: floor(1 + max |Courant|) substeps, the
+maximum taken over the compute domain and read to the host once per call
+(a synchronisation, so it stays off the default path).  The tracers stay
+stacked (T, 6, N, N, nz) through all substeps, so each substep is one
+batched transport call.
 """
 
 from __future__ import annotations
@@ -22,9 +26,20 @@ def _shift_stack(q, di: int = 0, dj: int = 0):
     return shift(q.movedim(0, -1), di, dj).movedim(-1, 0)
 
 
+def subcycle_count(x_courant, y_courant, n: int, h: int) -> int:
+    """The dynamic subcycle's trip count, max(floor(1 + max |C|), 1), the
+    maximum over the compute domain (the halo padding may hold NaN).  One
+    host read."""
+    cmax = torch.maximum(
+        x_courant[:, h:h + n + 1, h:h + n].abs().max(),
+        y_courant[:, h:h + n, h:h + n + 1].abs().max(),
+    )
+    return max(int(torch.floor(1.0 + cmax).item()), 1)
+
+
 def tracer_advection(
     tracers: dict, dp1, x_mass_flux, y_mass_flux, x_courant, y_courant,
-    gd, topo, n, h, hord_tr,
+    gd, topo, n, h, hord_tr, dynamic_subcycle: bool = False,
 ):
     """Advect tracers (dict of (6,N,N,nz) tensors). Returns updated dict."""
     hz, ang = gd.horizontal, gd.angle
@@ -49,8 +64,10 @@ def tracer_advection(
         y_courant * dya * dx * sin2,
     )
 
-    cmax = 2.0
-    n_split = math.floor(1.0 + cmax)
+    if dynamic_subcycle:
+        n_split = subcycle_count(x_courant, y_courant, n, h)
+    else:
+        n_split = math.floor(1.0 + 2.0)
     frac = 1.0 / n_split
     x_courant = x_courant * frac
     xfx = xfx * frac

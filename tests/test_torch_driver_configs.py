@@ -62,10 +62,21 @@ def test_multi_device_mesh_raises_at_the_driver_not_at_hydration():
 
 
 def test_fortran_restart_still_raises_naming_its_item():
+    """The Fortran restart start, which raised naming ROADMAP item 10
+    until it was ported, hydrates as in the reference package; a type
+    neither package registers still raises."""
+    from pace_torch.driver._from_dict import ConfigError
     from pace_torch.driver.initialization import InitializerSelector
+    from pace_tpu.driver.initialization import (
+        InitializerSelector as RefSelector,
+    )
 
-    with pytest.raises(NotImplementedError, match="item 10"):
-        InitializerSelector.from_dict({"type": "fortran_restart"})
+    port = InitializerSelector.from_dict({"type": "fortran_restart"})
+    ref = RefSelector.from_dict({"type": "fortran_restart"})
+    assert type(port.config).__name__ == type(ref.config).__name__
+    assert dataclasses.asdict(port.config) == dataclasses.asdict(ref.config)
+    with pytest.raises(ConfigError, match="fortran_restart"):
+        InitializerSelector.from_dict({"type": "fortran_restar"})
 
 
 def test_restart_and_predefined_starts_hydrate(tmp_path):

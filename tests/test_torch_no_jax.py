@@ -42,7 +42,10 @@ for name in ("ops.saturation_adjustment", "ops.fv_subgridz",
              "driver.performance", "driver.safety_checks", "utils.timing",
              "utils.netcdf", "utils.zarrlite", "utils.host",
              "grid.stretch_transformation",
-             "models.fv3.init.tropical_cyclone"):
+             "models.fv3.init.tropical_cyclone", "utils.checkpointer",
+             "utils.debug", "utils.namelist", "utils.legacy_restart",
+             "utils.quantity", "models.fv3.geos_wrapper",
+             "validation.jw_day1", "validation.jw_baroclinic_wave"):
     assert "pace_torch." + name in walked, name
 from pace_torch.grid.generation import generate_grid_data
 from pace_torch.models.fv3.config import DynamicalCoreConfig
@@ -124,15 +127,18 @@ def _entry_points():
     from pace_torch.models.fv3.init.baroclinic import init_baroclinic_state
     from pace_torch.models.fv3.init.tropical_cyclone import init_tc_state
     from pace_torch.utils.timing import Timer
+    from pace_torch.models.fv3.geos_wrapper import GeosDycoreWrapper
+    from pace_torch.validation import jw_baroclinic_wave, jw_day1
 
     return [Driver, Driver.from_dict, Physics, Microphysics,
             MicrophysicsEmulator, DycoreToPhysics, UpdateAtmosphereState,
             interior_mask, PhysicsState.init_zeros, generate_grid_data,
             init_baroclinic_state, init_tc_state, PerformanceConfig.build,
-            Timer]
+            Timer, GeosDycoreWrapper, jw_day1.run_day1, jw_day1.setup,
+            jw_baroclinic_wave.run]
 
 
-@pytest.mark.parametrize("index", range(14))
+@pytest.mark.parametrize("index", range(18))
 def test_new_entry_points_default_to_the_card(index):
     """The driver, the physics and the coupler are built on the card unless
     the caller asks for the CPU (read from the signature; needs no card)."""
@@ -144,6 +150,23 @@ def test_the_yaml_entry_point_defaults_to_the_card():
     from pace_torch.driver.run import build_parser
 
     assert build_parser().parse_args(["config.yaml"]).device == "cuda"
+
+
+def test_the_nine_day_run_defaults_to_the_card(monkeypatch):
+    """python -m pace_torch.validation.jw_baroclinic_wave asks for the card
+    unless told otherwise (read from its parser through a stand-in run)."""
+    from pace_torch.validation import jw_baroclinic_wave
+
+    asked = []
+
+    def stand_in(days, device):
+        asked.append((days, device))
+        raise RuntimeError("stop before the run")
+
+    monkeypatch.setattr(jw_baroclinic_wave, "run", stand_in)
+    with pytest.raises(RuntimeError, match="stop before"):
+        jw_baroclinic_wave.main([])
+    assert asked == [(9, "cuda")]
 
 
 def test_entry_points_raise_without_a_card():
@@ -163,6 +186,8 @@ def test_entry_points_raise_without_a_card():
     from pace_torch.models.fv3.init.tropical_cyclone import init_tc_state
     from pace_torch.models.physics.physics import Physics
     from pace_torch.utils.gridtools import GridSizing
+    from pace_torch.models.fv3.geos_wrapper import GeosDycoreWrapper
+    from pace_torch.validation.jw_day1 import run_day1
 
     area = torch.full((2, 2), 1.0e10)
     config = dict(nx_tile=12, nz=79, dt_atmos=225,
@@ -176,6 +201,8 @@ def test_entry_points_raise_without_a_card():
             lambda: MicrophysicsEmulator(MLPEmulatorConfig(), 8),
             lambda: DycoreToPhysics(GridSizing(12, 79)),
             lambda: init_tc_state(GridSizing(12, 79)),
+            lambda: GeosDycoreWrapper({"fv_core_nml": {"npx": 13}}),
+            lambda: run_day1(steps=0),
             lambda: main([str(REPO / "examples" / "configs"
                               / "baroclinic_c12.yaml"),
                           "--log-level", "ERROR"])):

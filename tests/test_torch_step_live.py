@@ -2,8 +2,11 @@
 of the port from the same numpy initial state, all 32 fields compared on
 the compute domain: at the default settings within 1e-10 of each field's
 scale, at the dycore settings of examples/configs/c96_baroclinic_shield.yaml
-within 1e-9.  Slow tier: the JAX side compiles and runs the whole step
-(~100 s on a CPU)."""
+and with each of the branches kord 8, do_skeb and the dynamic tracer
+subcycle within 1e-9.  (kord 10 is held op by op in
+tests/test_torch_branches.py: it branches on exact ties, where the two
+packages' last-place differences pick different branches.)  Slow tier: the
+JAX side compiles and runs the whole step (~100 s on a CPU)."""
 
 import dataclasses
 
@@ -76,4 +79,15 @@ def test_live_shield_step_matches_reference():
         300.0, 1e-9, k_split=2, n_split=3, hord_mt=8, hord_vt=8, hord_tm=8,
         hord_dp=8, hord_tr=10, rf_fast=True, tau=10.0, d_con=1.0,
         n_sponge=48)
+    assert not bad, bad
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("settings", [
+    dict(kord_mt=8, kord_wz=8, kord_tr=8, kord_tm=-8),
+    dict(do_skeb=True),
+    dict(dynamic_tracer_subcycle=True),
+], ids=["kord8", "skeb", "subcycle"])
+def test_live_branch_step_matches_reference(settings):
+    bad = _live_step_errors(DT, 1e-9, **settings)
     assert not bad, bad
