@@ -66,7 +66,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      for two steps, its first state the written one and its run finite; one
      GeosDycoreWrapper call, equal bit for bit to a DynamicalCore step on
      the same inputs; one C12 step under a checkpointer, whose savepoints
-     come in the reference's order.
+     come in the reference's order;
+  13. the savepoint harness: every registered translate case at C12/79
+     float64 with 6 ranks, and the cases of the kernels' operators at
+     C48/79 float64 with 54 ranks (3x3 a tile), each computed on the CPU,
+     written as a savepoint pair, read back and validated on the card at
+     its own threshold, with K-T, K-S and K-F launched on the way;
+     `python -m pace_torch.driver.tools memory` and `cost` on a copy of
+     c48_sections_perf.yaml (state bytes, temporary memory, the kernel
+     counts of a step) and `cost` of baroclinic_c12.yaml equal on the card
+     and the CPU; the native restart writer built, a restart through it
+     read back, and one C48 restart written through it and through
+     numpy.save in turns, timed.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -83,6 +94,7 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
 WARMUP, REPEATS = 3, 20
 
 
@@ -140,29 +152,10 @@ def max_rel(got, ref, region=...) -> tuple:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# NVIDIA H100 SXM data sheet: HBM3 rate and the float32 rate outside the
-# tensor cores (at the full 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-# Operations per output value, counted from the plain versions' formulas
-# (an add, multiply, divide, compare, min/max, abs or transcendental is
-# one): K-T per field and point, 4 PPM cells (slope, interface value,
-# limited edges: 27 each), 4 fluxes (9), 2 advected values (7) and 2 flux
-# combinations (3); K-S per level, about 60 plus 4 transcendentals; K-F
-# per level, about 20.
-OPS_PER_POINT = {"K-T": 4 * 27 + 4 * 9 + 2 * 7 + 2 * 3, "K-S": 64,
-                 "K-F": 20}
-
-
-def bound(name, inputs, outputs, points) -> tuple:
-    """(bound_ms, bound_by): the larger of the bytes the function must move
-    (each input read once, each output written once) over the HBM rate
-    and its operations over the float32 rate."""
-    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = points * OPS_PER_POINT[name] / F32_OPS_PER_S * 1e3
-    return ((by_bytes, "bytes") if by_bytes >= by_ops
-            else (by_ops, "operations"))
+# The bound model (the larger of bytes over the HBM rate and operations
+# over the float32 rate) and the kernels' names live in the package, where
+# `python -m pace_torch.driver.tools cost` reads them too.
+from pace_torch.ops.bounds import KERNELS, bound  # noqa: E402
 
 
 def transport_bound(args):
@@ -1382,20 +1375,261 @@ def run_entry_points(card) -> None:
         raise AssertionError(f"savepoints {order.names}")
 
 
-KERNELS = {
-    "K-T": dict(name="fvtp2d transport_batched", source="pace_torch/csrc/fvtp2d.cu",
-                replaces="pace_tpu/ops/pallas/fvtp2d_pallas.py:217"),
-    "K-S": dict(name="sim1 solver", source="pace_torch/csrc/sim1.cu",
-                replaces="pace_tpu/ops/pallas/sim1_pallas.py:202"),
-    "K-F": dict(name="fillz fix_tracer", source="pace_torch/csrc/fillz.cu",
-                replaces="pace_tpu/ops/pallas/fillz_pallas.py:135"),
+# ---------------------------------------------------------------------------
+# phase 13: the savepoint harness, driver.tools and the native restart writer
+# ---------------------------------------------------------------------------
+
+# The cases the card computes with last-place differences from the CPU on
+# identical inputs (the device's exp/log/pow and summation order; the SIM1
+# solves and the acoustic step amplify them) that the harness's per-point
+# relative metric magnifies where an output is near zero, or lies in halo
+# cells no operator defines (values computed from the zero-filled cells
+# outside the blocks): on the card each is held instead, output by output,
+# at this bar of max |card - CPU| over its compute-domain scale
+# (`TranslateCase.domain_errors`), about ten times what the card measured
+# (in brackets: C12, 6 ranks; C48, 54 ranks).  Phase 13 prints beside each
+# the per-point metric and what the same operator moves by on the CPU
+# when its inputs are moved by 1e-15 relative (PERF.md section 6).
+CARD_BOUNDS = {
+    "A2B_Ord4": 3e-15,                # vort 2.388e-16
+    "AtmosPhysDriverStatein": 5e-14,  # prsl 4.227e-15
+    "UpdateDWindsPhys": 2e-15,        # v 1.017e-16
+    "FVUpdatePhys": 2e-13,            # va 1.647e-14
+    "Riem_Solver_C": 2e-14,           # gz 1.160e-15, C48 1.546e-15
+    "Riem_Solver3": 2e-13,            # ppe 1.578e-14, C48 1.851e-14
+    "SatAdjust3d": 2e-12,             # qliquid 1.755e-13
+    "DynCore": 2e-10,                 # wsd 1.793e-11
+    # the whole steps (w 1.012e-12), at the whole-step gate of phases 7b
+    # and 10
+    "FVDynamics": 1e-9,
+    "Driver": 1e-9,
 }
+
+
+def nudged_inputs(case, dataset, scale=1e-15):
+    """The savepoint's assembled inputs with their arrays moved by `scale`
+    relative (utils.testing.perturb; scalars and per-level columns kept)."""
+    from pace_torch.utils.testing import perturb
+
+    inputs = case.assemble([dataset.inputs(r) for r in range(case.n_ranks)])
+    arrays = {k: v for k, v in inputs.items()
+              if np.ndim(v) and not case.in_vars[k].column}
+    return {**inputs, **perturb(arrays, scale=scale)}
+
+
+# the cases whose operators run a hand-written kernel on the card
+KERNEL_CASES = ("FvTp2d", "Tracer2D1L", "Riem_Solver_C", "Riem_Solver3",
+                "Fillz", "Remapping")
+
+
+def case_savepoints(names, n, layout) -> dict:
+    """Each case of `names` at C`n`/79 float64 with `layout` ranks a tile:
+    its `make_inputs` on the port's baroclinic state and one step of it
+    (taken on the card), its outputs computed on the CPU and written as a
+    savepoint pair by the port's `write_savepoint`, then read, assembled,
+    computed on the card and validated by the same case built for the card
+    at its own max_error (or, for a CARD_BOUNDS case, held at its bar on
+    the compute domain).  Returns the kernels' launches of the card's
+    runs."""
+    import tempfile
+
+    from pace_torch.grid.generation import generate_grid_data
+    from pace_torch.utils.translate import (
+        SavepointDataset,
+        write_case_savepoint,
+    )
+    from pace_torch.utils.translate_cases import CASES
+    from pace_torch.utils.translate_cases import state_arrays as case_state
+
+    sizing, core, state = make_core(n, torch.float64, 225.0)
+    s0, s1 = case_state(state), case_state(core.step_dynamics(state))
+    gd_cpu = generate_grid_data(n, 79, device="cpu", dtype=torch.float64)
+    ranks = 6 * layout[0] * layout[1]
+    cpu_s = card_s = 0.0
+    reset_launches()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        for name in names:
+            t0 = time.perf_counter()
+            cpu_case = CASES[name](sizing, gd_cpu, layout=layout,
+                                   device="cpu")
+            write_case_savepoint(
+                cpu_case, cpu_case.make_inputs(s0, s1, gd_cpu), tmp)
+            t1 = time.perf_counter()
+            case = CASES[name](sizing, core.grid_data, layout=layout)
+            dataset = SavepointDataset(tmp, name)
+            bar = CARD_BOUNDS.get(name)
+            how = ""
+            if bar is None:
+                errors = case.validate(dataset)
+                how = f"max_error {case.max_error:g}"
+            else:
+                errors, metric = case.domain_errors(dataset)
+                worst = max(metric, key=metric.get)
+                nudged, nudged_metric = cpu_case.domain_errors(
+                    dataset, nudged_inputs(cpu_case, dataset))
+                nudge = max(nudged, key=nudged.get)
+                how = (f"of scale on the compute domain, bar {bar:g}; the "
+                       f"per-point metric {worst} {metric[worst]:.3e}, "
+                       f"max_error {case.max_error:g}; the CPU on its "
+                       f"inputs moved by 1e-15: {nudge} {nudged[nudge]:.3e}"
+                       f" of scale, metric "
+                       f"{max(nudged_metric.values()):.3e}")
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            cpu_s, card_s = cpu_s + t1 - t0, card_s + t2 - t1
+            worst = max(errors, key=errors.get)
+            ok = bar is None or errors[worst] <= bar
+            log(f"[13] C{n}/79 f64 {ranks} ranks {name}: worst {worst} "
+                f"{errors[worst]:.3e} ({how}) {'ok' if ok else 'FAIL'} "
+                f"(CPU {t1 - t0:.2f} s, card {t2 - t1:.2f} s)")
+            if not ok:
+                raise AssertionError(f"{name}: {worst} {errors[worst]} > "
+                                     f"{bar}")
+    launches = read_launches()
+    log(f"[13] C{n} {ranks} ranks: {len(names)} cases validated on the card "
+        f"against the CPU's savepoints (CPU {cpu_s:.1f} s, card "
+        f"{card_s:.1f} s); kernel launches on the card: "
+        + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"phase 13: {name} was not launched")
+    return launches
+
+
+def run_tools(path, action, device="cuda") -> dict:
+    """`python -m pace_torch.driver.tools <action> <path> --device
+    <device>` in a fresh interpreter, from the yaml's directory; returns
+    the report its last line prints."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pace_torch.driver.tools", action, path,
+         "--device", device], cwd=os.path.dirname(path),
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"tools {action} {device}: exit "
+                             f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"[13] tools {action} {os.path.basename(path)} --device {device} "
+        f"({time.perf_counter() - t0:.1f} s): "
+        + json.dumps({k: v for k, v in report.items() if k != "ops"}))
+    return report
+
+
+def check_tools(card) -> None:
+    """`driver.tools memory` and `cost` on a copy of c48_sections_perf.yaml
+    (output paths changed): the argument and output bytes are the state's,
+    the step's temporary memory positive, the kernel counts those of a
+    step of the configuration; and `cost` of baroclinic_c12.yaml equal on
+    the card and the CPU."""
+    import tempfile
+
+    from pace_torch.driver.driver import DriverConfig
+    from pace_torch.models.fv3.state import zeros_numpy
+    from pace_torch.utils.gridtools import GridSizing
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        path = yaml_copy("c48_sections_perf.yaml", os.path.join(tmp, "c48"))
+        config = DriverConfig.from_yaml(path)
+        itemsize = np.dtype(config.dtype).itemsize
+        state_bytes = itemsize * sum(
+            a.size for a in zeros_numpy(GridSizing(config.nx_tile,
+                                                   config.nz)).values())
+        mem = run_tools(path, "memory")
+        ok = (mem["argument_size_in_bytes"] == state_bytes
+              == mem["output_size_in_bytes"]
+              and mem["peak_size_in_bytes"] > mem["temp_size_in_bytes"] > 0
+              and mem["generated_code_size_in_bytes"] > 0)
+        log(f"[13] memory: state {state_bytes} bytes, temp "
+            f"{mem['temp_size_in_bytes']} bytes (peak over the step less "
+            f"the bytes allocated before it), peak "
+            f"{mem['peak_size_in_bytes']} bytes on {card} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"tools memory: {mem}")
+        cost = run_tools(path, "cost")
+        counts = {k: v["launches"] for k, v in cost["kernels"].items()}
+        expect = expected_launches(config.dycore_config)
+        ok = counts == expect
+        log(f"[13] cost: {cost['launches']} launches, "
+            f"{cost['bytes accessed']} bytes, {cost['flops']} flops a step, "
+            f"optimal {cost['optimal_seconds'] * 1e3:.3f} ms; kernels "
+            f"{counts}, a step of phase 9's run launches {expect} "
+            f"{'ok' if ok else 'FAIL'} on {card}")
+        if not ok:
+            raise AssertionError(f"tools cost kernels {counts} != {expect}")
+        path = yaml_copy("baroclinic_c12.yaml", os.path.join(tmp, "c12"))
+        on_card, on_cpu = (run_tools(path, "cost", device)
+                           for device in ("cuda", "cpu"))
+        same = ({k: v for k, v in on_card.items() if k != "device"}
+                == {k: v for k, v in on_cpu.items() if k != "device"})
+        log(f"[13] cost of baroclinic_c12.yaml on the card and on the CPU: "
+            f"{'equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"cost differs: card {on_card}, cpu "
+                                 f"{on_cpu}")
+
+
+def check_fastpack(card) -> None:
+    """The native restart writer: built, a restart written through
+    `driver.restart` reads back equal, and one C48/79 float32 restart
+    (the state of c48_sections_perf.yaml) written through fastpack and
+    through numpy.save in turns, timed; the files of both are equal."""
+    import dataclasses
+    import tempfile
+
+    from pace_torch._native import fastpack
+    from pace_torch.driver.restart import load_restart_arrays, write_restart
+    from pace_torch.utils.host import to_host
+
+    t0 = time.perf_counter()
+    lib = fastpack.build()
+    log(f"[13] fastpack: {os.path.relpath(lib, REPO)} "
+        f"({time.perf_counter() - t0:.2f} s, built or found); phase 9's "
+        f"step-3 restart above was written through it")
+    _, _, state = make_core(48, torch.float32, 450.0)
+    arrays = to_host({f.name: getattr(state, f.name)
+                      for f in dataclasses.fields(state)})
+    nbytes = sum(a.nbytes for a in arrays.values())
+
+    def with_numpy(directory, arrays):
+        os.makedirs(directory)
+        for name, arr in arrays.items():
+            np.save(os.path.join(directory, name + ".npy"), arr)
+
+    writers = {"fastpack": fastpack.write_state_npys, "numpy.save": with_numpy}
+    times = {how: [] for how in writers}
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        write_restart(state, None, os.path.join(tmp, "restart"))
+        back = load_restart_arrays(os.path.join(tmp, "restart"))
+        if sorted(back) != sorted(arrays) or not all(
+                np.array_equal(back[k], arrays[k]) for k in arrays):
+            raise AssertionError("restart through fastpack reads back "
+                                 "different")
+        order = ["fastpack", "numpy.save", "numpy.save", "fastpack"] * 2
+        for i, how in enumerate(order):
+            directory = os.path.join(tmp, f"{how}_{i}")
+            t0 = time.perf_counter()
+            writers[how](directory, arrays)
+            times[how].append(time.perf_counter() - t0)
+        a, b = (os.path.join(tmp, f"{how}_{order.index(how)}")
+                for how in writers)
+        same = all(open(os.path.join(a, f), "rb").read()
+                   == open(os.path.join(b, f), "rb").read()
+                   for f in os.listdir(a))
+    log(f"[13] C48/79 float32 restart, {len(arrays)} fields, "
+        f"{nbytes / 1e6:.1f} MB, {len(order) // 2} writes each in turns: "
+        + ", ".join(f"{how} " + " ".join(f"{t * 1e3:.1f}" for t in ts)
+                    + f" ms (median {np.median(ts) * 1e3:.1f})"
+                    for how, ts in times.items())
+        + f"; files {'identical' if same else 'DIFFER'} on {card}")
+    if not same:
+        raise AssertionError("fastpack and numpy.save files differ")
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
-    sys.path.insert(0, REPO)
     from pace_torch.ops import _cuda
 
     started = time.perf_counter()
@@ -1462,7 +1696,19 @@ def main() -> None:
     # ---- phase 12: the other entry points
     t12 = time.perf_counter()
     run_entry_points(card)
-    log(f"[12] phase 12 took {time.perf_counter() - t12:.0f} s; all phases "
+    log(f"[12] phase 12 took {time.perf_counter() - t12:.0f} s")
+
+    # ---- phase 13: the savepoint harness, tools and the restart writer
+    t13 = time.perf_counter()
+    import pace_torch.utils.translate_cases_grid  # noqa: F401 (registers)
+    import pace_torch.utils.translate_cases_physics  # noqa: F401
+    from pace_torch.utils.translate_cases import CASES
+
+    case_savepoints(sorted(CASES), 12, (1, 1))
+    case_savepoints(KERNEL_CASES, 48, (3, 3))
+    check_tools(card)
+    check_fastpack(card)
+    log(f"[13] phase 13 took {time.perf_counter() - t13:.0f} s; all phases "
         f"took {time.perf_counter() - started:.0f} s")
 
     kernels = [

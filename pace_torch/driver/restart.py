@@ -2,10 +2,12 @@
 
 Port of `pace_tpu.driver.restart` (reference RestartConfig / Restart,
 driver/pace/driver/driver.py:198-240, and util restart IO).  `format: npz`
-writes one standard `.npy` file per field under `dycore_state/`, the
-layout the reference package's native writer produces; `format: netcdf`
-writes `dycore_state.nc`.  `load_restart_arrays` reads either, and the
-single `dycore_state.npz` the reference package falls back to.
+writes one standard `.npy` file per field under `dycore_state/` through
+the threaded native writer (`_native/fastpack`, built with g++ at first
+use; where it cannot be built the write raises), the layout the reference
+package's writer produces; `format: netcdf` writes `dycore_state.nc`.
+`load_restart_arrays` reads either, and the single `dycore_state.npz` the
+reference package falls back to.
 """
 
 from __future__ import annotations
@@ -63,10 +65,9 @@ def write_restart(dycore_state, time, path: str, format: str = "npz"):
             attrs={"time": str(time) if time else ""},
         )
     else:
-        npy_dir = os.path.join(path, "dycore_state")
-        os.makedirs(npy_dir, exist_ok=True)
-        for name, arr in arrays.items():
-            np.save(os.path.join(npy_dir, f"{name}.npy"), arr)
+        from pace_torch._native.fastpack import write_state_npys
+
+        write_state_npys(os.path.join(path, "dycore_state"), arrays)
     with open(os.path.join(path, "time.json"), "w") as f:
         json.dump({"time": str(time) if time else None}, f)
 
@@ -79,8 +80,10 @@ def load_restart_arrays(path: str) -> dict:
         return read_dataset(nc_path)
     npy_dir = os.path.join(path, "dycore_state")
     if os.path.isdir(npy_dir):
+        from pace_torch._native.fastpack import read_npy
+
         return {
-            fname[:-4]: np.load(os.path.join(npy_dir, fname))
+            fname[:-4]: read_npy(os.path.join(npy_dir, fname))
             for fname in sorted(os.listdir(npy_dir))
             if fname.endswith(".npy")
         }

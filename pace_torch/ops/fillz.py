@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from pace_torch.ops import bounds
+
 # Launches of the CUDA fillz kernel; read and reset by chip_smoke.py.
 LAUNCHES = 0
 
@@ -103,6 +105,11 @@ def fix_tracers_cuda(q, dp):
 def fix_tracers(q, dp):
     """Fix a (T, ..., nz) tracer stack sharing dp (..., nz).  A CPU tensor
     takes the plain version, a CUDA tensor the kernel."""
-    if q.is_cuda:
-        return fix_tracers_cuda(q, dp)
-    return torch.stack([fix_tracer_plain(q[t], dp) for t in range(q.shape[0])])
+    with bounds.kernel_call("K-F") as report:
+        if q.is_cuda:
+            out = fix_tracers_cuda(q, dp)
+        else:
+            out = torch.stack([fix_tracer_plain(q[t], dp)
+                               for t in range(q.shape[0])])
+        report((q, dp), (out,), q.numel())
+    return out

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from pace_torch.ops import bounds
 from pace_torch.ops import corners as corner_ops
 from pace_torch.ops.delnflux import deln_flux
 from pace_torch.ops.stencil_utils import shift
@@ -98,11 +99,14 @@ def transport_batched(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya,
                       area, n: int, h: int, hord: int):
     """Batched fv_tp_2d fluxes (no damping); see transport_batched_plain.
     A CPU tensor takes the plain version, a CUDA tensor the kernel."""
-    if q_y.is_cuda:
-        return transport_batched_cuda(q_y, q_x, crx, cry, xfx, yfx, xmf,
-                                      ymf, dxa, dya, area, n, h, hord)
-    return transport_batched_plain(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf,
-                                   dxa, dya, area, n, h, hord)
+    args = (q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area)
+    with bounds.kernel_call("K-T") as report:
+        if q_y.is_cuda:
+            out = transport_batched_cuda(*args, n, h, hord)
+        else:
+            out = transport_batched_plain(*args, n, h, hord)
+        report(args, out, q_y.numel())
+    return out
 
 
 def fv_tp_2d(

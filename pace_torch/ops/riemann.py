@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from pace_torch.ops import bounds
 from pace_torch.utils import constants
 
 # Launches of the CUDA SIM1 kernel; read and reset by chip_smoke.py.
@@ -134,9 +135,14 @@ def sim1_solver_cuda(w, dm, gm, dz, pt, pm, pem, ws, dt, p_fac):
 def sim1_solver(w, dm, gm, dz, pt, pm, pem, ws, dt, p_fac):
     """SIM1 solve; a CPU tensor takes the plain version, a CUDA tensor the
     kernel.  See sim1_solver_plain for the arguments."""
-    if w.is_cuda:
-        return sim1_solver_cuda(w, dm, gm, dz, pt, pm, pem, ws, dt, p_fac)
-    return sim1_solver_plain(w, dm, gm, dz, pt, pm, pem, ws, dt, p_fac)
+    args = (w, dm, gm, dz, pt, pm, pem, ws)
+    with bounds.kernel_call("K-S") as report:
+        if w.is_cuda:
+            out = sim1_solver_cuda(*args, dt, p_fac)
+        else:
+            out = sim1_solver_plain(*args, dt, p_fac)
+        report(args, out, w.numel())
+    return out
 
 
 def interfaces(top: float, layers: torch.Tensor) -> torch.Tensor:

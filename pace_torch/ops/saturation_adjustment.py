@@ -5,8 +5,9 @@ fv3core/pace/fv3core/stencils/saturation_adjustment.py; Zhou, Harris and
 Chen 2022).  As in `pace_tpu`, the saturation vapour pressure and its
 temperature derivative are the closed forms the reference's 2621-entry
 tables were built from, evaluated at the table-clamped temperature
-(`_es_and_ddt`).  Everything is elementwise over (6, N, N, nz) tensors; the
-time-scale factors are Python floats fixed per call.
+(`_es_and_ddt`); `qs_tables` builds the tables themselves in numpy, for
+the QSInit savepoint.  Everything is elementwise over (6, N, N, nz)
+tensors; the time-scale factors are Python floats fixed per call.
 """
 
 from __future__ import annotations
@@ -21,6 +22,45 @@ from pace_torch.utils import constants
 
 DELT = 0.1
 QS_LENGTH = 2621
+
+
+def qs_tables():
+    """The reference's saturation tables (table, table2, tablew, des2,
+    desw), float64 numpy, as `pace_tpu.ops.saturation_adjustment._qs_tables`
+    builds them."""
+    i = np.arange(QS_LENGTH, dtype=np.float64)
+    tem_l = constants.T_SAT_MIN + DELT * i
+    tem_u = 253.16 + DELT * (i - 1400)
+
+    def q_table(dc, lh, tem):
+        return constants.E00 * np.exp(
+            (dc * np.log(tem / constants.TICE)
+             + (tem - constants.TICE) / (tem * constants.TICE) * lh)
+            / constants.RVGAS
+        )
+
+    t_ice_l = q_table(constants.D2ICE, constants.LI2, tem_l)
+    t_vap_l = q_table(constants.DC_VAP, constants.LV0, tem_l)
+    t_vap_u = q_table(constants.DC_VAP, constants.LV0, tem_u)
+
+    table = np.where(i < 1600, t_ice_l, t_vap_u)
+    blend = (i >= 1400) & (i < 1600)
+    wice = 0.05 * (constants.TICE - tem_u)
+    wh2o = 0.05 * (tem_u - 253.16)
+    table = np.where(blend, wice * t_ice_l + wh2o * t_vap_u, table)
+
+    table2 = np.where(i < 1600, t_ice_l, t_vap_l)
+    # smoothing at the ice/water transition
+    for idx in (1599, 1600):
+        table2[idx] = 0.25 * (table2[idx - 1] + 2.0 * table[idx]
+                              + table2[idx + 1])
+
+    def des(t):
+        d = np.maximum(0.0, np.diff(t, append=t[-1]))
+        d[-1] = d[-2]
+        return d
+
+    return table, table2, t_vap_l, des(table2), des(t_vap_l)
 
 
 def _es_water(t):

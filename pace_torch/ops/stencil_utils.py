@@ -20,12 +20,14 @@ def _shift_axis(q: torch.Tensor, d: int, axis: int) -> torch.Tensor:
     """out[i] = q[i+d] along `axis` where in bounds, 0 elsewhere."""
     if abs(d) > _H:
         raise ValueError(f"shift offset {d} exceeds fixed halo {_H}")
-    out = torch.zeros_like(q)
+    out = torch.empty_like(q)
     size = q.shape[axis] - abs(d)
     if d > 0:
         out.narrow(axis, 0, size).copy_(q.narrow(axis, d, size))
+        out.narrow(axis, size, d).zero_()
     else:
         out.narrow(axis, -d, size).copy_(q.narrow(axis, 0, size))
+        out.narrow(axis, 0, -d).zero_()
     return out
 
 

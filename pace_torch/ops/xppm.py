@@ -116,49 +116,75 @@ def _xt_dxa_edge_1(q, dxa, sh):
     return torch.minimum(torch.maximum(xt, minq), maxq)
 
 
-def _compute_blbr_ord8plus(q, dxa, n, h, sh, upd, constraint_cols=None):
+def _compute_blbr_ord8plus(q, dxa, n, h, sh, upd, axis,
+                           constraint_cols=None):
+    """PPM edge perturbations bl, br for ord >= 8 along `axis`.  The
+    one-sided edge forms (xppm.py bl_br_edges) and the standard constraint
+    are evaluated on the columns they apply to only: each edge form reads
+    the columns within 2 of its own, so it is evaluated on those 5 columns
+    (the same operations on the same values as on the whole array)."""
+    if h < 3:
+        raise ValueError("the ord >= 8 edge forms need a halo of 3")
     dm = _dm_iord8plus(q, sh)
     al = 0.5 * (sh(q, -1) + q) + (1.0 / 3.0) * (sh(dm, -1) - dm)
     xt2 = 2.0 * dm
     bl = -1.0 * sign(torch.minimum(torch.abs(xt2), torch.abs(al - q)), xt2)
     br = sign(torch.minimum(torch.abs(xt2), torch.abs(sh(al, 1) - q)), xt2)
 
-    # edge overrides (xppm.py bl_br_edges)
-    dm_left = _dm_iord8plus(sh(q, -1), sh)
-    dm_right = _dm_iord8plus(sh(q, 1), sh)
-    al_ip1 = sh(al, 1)
+    def col(t, c):
+        return t.narrow(axis, c, 1)
 
-    xt_bl = torch.zeros_like(q)
-    xt_br = torch.zeros_like(q)
-    # i_start - 1
-    xt_bl = upd(xt_bl, S14 * dm_left + S11 * (sh(q, -1) - q) + q, h - 1)
-    xt_br = upd(xt_br, _xt_dxa_edge_0(q, dxa, sh), h - 1)
-    # i_start
-    xt_bl = upd(xt_bl, _xt_dxa_edge_1(q, dxa, sh), h)
-    xt_br = upd(xt_br, S15 * q + S11 * sh(q, 1) - S14 * dm_right, h)
-    # i_start + 1
-    xt_bl = upd(xt_bl, S15 * sh(q, -1) + S11 * q - S14 * dm, h + 1)
-    xt_br = upd(xt_br, al_ip1, h + 1)
-    # i_end - 1
-    xt_bl = upd(xt_bl, al, h + n - 2)
-    xt_br = upd(xt_br, S15 * sh(q, 1) + S11 * q + S14 * dm, h + n - 2)
-    # i_end
-    xt_bl = upd(xt_bl, S15 * q + S11 * sh(q, -1) + S14 * dm_left, h + n - 1)
-    xt_br = upd(xt_br, _xt_dxa_edge_0(q, dxa, sh), h + n - 1)
-    # i_end + 1
-    xt_bl = upd(xt_bl, _xt_dxa_edge_1(q, dxa, sh), h + n)
-    xt_br = upd(xt_br, S11 * (sh(q, 1) - q) - S14 * dm_right + q, h + n)
+    def at(c, form):
+        """form(w) at column c, w(t) the 5 columns of t around c."""
+        return col(form(lambda t: t.narrow(axis, c - 2, 5)), 2)
 
-    edge_cols = (h - 1, h, h + 1, h + n - 2, h + n - 1, h + n)
-    bl = upd(bl, xt_bl - q, *edge_cols)
-    br = upd(br, xt_br - q, *edge_cols)
+    def dm_left(w):
+        return _dm_iord8plus(sh(w(q), -1), sh)
+
+    def dm_right(w):
+        return _dm_iord8plus(sh(w(q), 1), sh)
+
+    # (column, xt_bl, xt_br) in xppm.py bl_br_edges' order
+    edges = [
+        (h - 1,
+         at(h - 1, lambda w: S14 * dm_left(w) + S11 * (sh(w(q), -1) - w(q))
+            + w(q)),
+         at(h - 1, lambda w: _xt_dxa_edge_0(w(q), w(dxa), sh))),
+        (h,
+         at(h, lambda w: _xt_dxa_edge_1(w(q), w(dxa), sh)),
+         at(h, lambda w: S15 * w(q) + S11 * sh(w(q), 1)
+            - S14 * dm_right(w))),
+        (h + 1,
+         at(h + 1, lambda w: S15 * sh(w(q), -1) + S11 * w(q) - S14 * w(dm)),
+         col(al, h + 2)),
+        (h + n - 2, col(al, h + n - 2),
+         at(h + n - 2, lambda w: S15 * sh(w(q), 1) + S11 * w(q)
+            + S14 * w(dm))),
+        (h + n - 1,
+         at(h + n - 1, lambda w: S15 * w(q) + S11 * sh(w(q), -1)
+            + S14 * dm_left(w)),
+         at(h + n - 1, lambda w: _xt_dxa_edge_0(w(q), w(dxa), sh))),
+        (h + n,
+         at(h + n, lambda w: _xt_dxa_edge_1(w(q), w(dxa), sh)),
+         at(h + n, lambda w: S11 * (sh(w(q), 1) - w(q)) - S14 * dm_right(w)
+            + w(q))),
+    ]
+    bl, br = bl.clone(), br.clone()
+    for c, xt_bl, xt_br in edges:
+        col(bl, c).copy_(xt_bl - col(q, c))
+        col(br, c).copy_(xt_br - col(q, c))
     if constraint_cols is None:
-        constraint_cols = edge_cols
-    bl_c, br_c = pert_ppm_standard_constraint(q, bl, br)
-    return upd(bl, bl_c, *constraint_cols), upd(br, br_c, *constraint_cols)
+        constraint_cols = [c for c, _, _ in edges]
+    limited = [(c, *pert_ppm_standard_constraint(col(q, c), col(bl, c),
+                                                 col(br, c)))
+               for c in constraint_cols]
+    for c, bl_c, br_c in limited:
+        col(bl, c).copy_(bl_c)
+        col(br, c).copy_(br_c)
+    return bl, br
 
 
-def _flux_core(q, courant, dgrid, n, h, ord_, sh, upd):
+def _flux_core(q, courant, dgrid, n, h, ord_, sh, upd, axis):
     mord = abs(ord_)
     if mord < 8:
         al = _compute_al(q, dgrid, n, h, sh, upd)
@@ -174,7 +200,7 @@ def _flux_core(q, courant, dgrid, n, h, ord_, sh, upd):
         return torch.where(
             courant > 0.0, sh(q, -1) + fx1 * mask, q + fx1 * mask
         )
-    bl, br = _compute_blbr_ord8plus(q, dgrid, n, h, sh, upd)
+    bl, br = _compute_blbr_ord8plus(q, dgrid, n, h, sh, upd, axis)
     b0 = bl + br
     fx1 = _fx1_fn(courant, br, b0, bl, sh)
     return torch.where(courant > 0.0, sh(q, -1) + fx1, q + fx1)
@@ -183,10 +209,10 @@ def _flux_core(q, courant, dgrid, n, h, ord_, sh, upd):
 def x_flux(q, courant, dxa, n, h, iord):
     """PPM flux of q across x-interfaces given interface courant numbers."""
     sh, upd = _ax_ops(1)
-    return _flux_core(q, courant, dxa, n, h, iord, sh, upd)
+    return _flux_core(q, courant, dxa, n, h, iord, sh, upd, 1)
 
 
 def y_flux(q, courant, dya, n, h, jord):
     """PPM flux across y-interfaces: the x operator with the axis switched."""
     sh, upd = _ax_ops(2)
-    return _flux_core(q, courant, dya, n, h, jord, sh, upd)
+    return _flux_core(q, courant, dya, n, h, jord, sh, upd, 2)

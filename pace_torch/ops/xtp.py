@@ -32,7 +32,7 @@ def _advect_along(w, wb_contra, rd, d, da, dt, n, h, ord_, axis):
         # xtp_u applies the PPM constraint only on the i_start+1 and
         # i_end-1 columns (xtp_u.py get_bl_br), unlike xppm
         bl, br = xppm._compute_blbr_ord8plus(
-            w, da, n, h, sh, upd, constraint_cols=(h + 1, h + n - 2)
+            w, da, n, h, sh, upd, axis, constraint_cols=(h + 1, h + n - 2)
         )
     # zero corners: along-axis i in {h-1, h, h+n-1, h+n}, cross j in {h, h+n}
     ii = (h - 1, h, h + n - 1, h + n)

@@ -15,6 +15,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -45,7 +46,12 @@ for name in ("ops.saturation_adjustment", "ops.fv_subgridz",
              "models.fv3.init.tropical_cyclone", "utils.checkpointer",
              "utils.debug", "utils.namelist", "utils.legacy_restart",
              "utils.quantity", "models.fv3.geos_wrapper",
-             "validation.jw_day1", "validation.jw_baroclinic_wave"):
+             "validation.jw_day1", "validation.jw_baroclinic_wave",
+             "utils.testing", "utils.functional_validation",
+             "utils.nudging", "utils.monitor", "utils.translate",
+             "utils.translate_cases", "utils.translate_cases_grid",
+             "utils.translate_cases_physics", "driver.tools", "ops.bounds",
+             "_native.fastpack"):
     assert "pace_torch." + name in walked, name
 from pace_torch.grid.generation import generate_grid_data
 from pace_torch.models.fv3.config import DynamicalCoreConfig
@@ -85,6 +91,10 @@ for name in ("pt", "delp", "qvapor", "u", "v", "w"):
     assert np.isfinite(coupled[name][:, h:h + 12, h:h + 12]).all(), name
 times, records = NetCDFMonitor.read(os.path.join(tmp, "out"))
 assert len(records) == 1 and np.isfinite(records[0]["pt"]).all()
+from pace_torch.driver.restart import write_restart
+write_restart(state, None, os.path.join(tmp, "npy"))  # through fastpack
+back = load_restart_arrays(os.path.join(tmp, "npy"))
+assert np.array_equal(back["pt"], state.pt.numpy(), equal_nan=True)
 assert os.path.exists(os.path.join(tmp, "no_jax_perf.json"))
 os.chdir("/")
 import shutil
@@ -129,16 +139,19 @@ def _entry_points():
     from pace_torch.utils.timing import Timer
     from pace_torch.models.fv3.geos_wrapper import GeosDycoreWrapper
     from pace_torch.validation import jw_baroclinic_wave, jw_day1
+    from pace_torch.driver import tools
+    from pace_torch.utils.translate_cases import BaseOpCase
 
     return [Driver, Driver.from_dict, Physics, Microphysics,
             MicrophysicsEmulator, DycoreToPhysics, UpdateAtmosphereState,
             interior_mask, PhysicsState.init_zeros, generate_grid_data,
             init_baroclinic_state, init_tc_state, PerformanceConfig.build,
             Timer, GeosDycoreWrapper, jw_day1.run_day1, jw_day1.setup,
-            jw_baroclinic_wave.run]
+            jw_baroclinic_wave.run, BaseOpCase, tools.build_driver,
+            tools.memory_static_analysis, tools.kernel_theoretical_timing]
 
 
-@pytest.mark.parametrize("index", range(18))
+@pytest.mark.parametrize("index", range(22))
 def test_new_entry_points_default_to_the_card(index):
     """The driver, the physics and the coupler are built on the card unless
     the caller asks for the CPU (read from the signature; needs no card)."""
@@ -147,9 +160,12 @@ def test_new_entry_points_default_to_the_card(index):
 
 
 def test_the_yaml_entry_point_defaults_to_the_card():
+    from pace_torch.driver import tools
     from pace_torch.driver.run import build_parser
 
     assert build_parser().parse_args(["config.yaml"]).device == "cuda"
+    assert tools.build_parser().parse_args(
+        ["memory", "config.yaml"]).device == "cuda"
 
 
 def test_the_nine_day_run_defaults_to_the_card(monkeypatch):
@@ -188,6 +204,9 @@ def test_entry_points_raise_without_a_card():
     from pace_torch.utils.gridtools import GridSizing
     from pace_torch.models.fv3.geos_wrapper import GeosDycoreWrapper
     from pace_torch.validation.jw_day1 import run_day1
+    from pace_torch.driver import tools
+    from pace_torch.grid.generation import generate_grid_data
+    from pace_torch.utils.translate_cases import CASES
 
     area = torch.full((2, 2), 1.0e10)
     config = dict(nx_tile=12, nz=79, dt_atmos=225,
@@ -203,6 +222,13 @@ def test_entry_points_raise_without_a_card():
             lambda: init_tc_state(GridSizing(12, 79)),
             lambda: GeosDycoreWrapper({"fv_core_nml": {"npx": 13}}),
             lambda: run_day1(steps=0),
+            lambda: tools.memory_static_analysis(
+                str(REPO / "examples" / "configs" / "baroclinic_c12.yaml")),
+            lambda: CASES["XPPM"](
+                GridSizing(12, 79),
+                generate_grid_data(12, 79, device="cpu")).compute(
+                    {"q": np.zeros((6, 24, 24, 79)), "iord": 8,
+                     "c": np.zeros((6, 24, 24, 79))}),
             lambda: main([str(REPO / "examples" / "configs"
                               / "baroclinic_c12.yaml"),
                           "--log-level", "ERROR"])):
