@@ -10,7 +10,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      main path's shapes (the transport also at hord 5 and 10; fillz on
      inputs with many negative columns, with few, and with a zero or
      non-finite dp or q planted in columns without negatives), float64
-     and float32, with CUDA-event timings and each kernel's bound;
+     and float32, with CUDA-event timings and each kernel's bound; then
+     K-T (T=8 hord 8, T=1 hord 6), K-S and K-F at the tile counts of a
+     rank, 1 and 3 tiles of the same inputs;
   3. the C12/79 dycore step on the card against the committed digests of
      the reference package (float64 step 1, float32 steps 1-2);
   4. the main path, C48/79 float32, k_split=1, n_split=2, dt=450 s:
@@ -77,7 +79,19 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      counts of a step) and `cost` of baroclinic_c12.yaml equal on the card
      and the CPU; the native restart writer built, a restart through it
      read back, and one C48 restart written through it and through
-     numpy.save in turns, timed.
+     numpy.save in turns, timed;
+  14. ranks of a (t, 1, 1) layout on the one card, started through
+     torchrun (`chip_smoke.py --ranks DIR` is one rank), exchanging
+     through gloo with pinned-host staging: two C12/79 float64 steps under
+     pair_debug against the one-rank card step at (6, 1, 1) and (2, 1, 1);
+     C192/79 float32 k1/n6 at (6, 1, 1), one warm-up and three timed steps
+     (launches, exchange bytes from the plan and exchange ms from CUDA
+     events a step, memory and ms/step of each rank), the gathered state
+     against four steps of one process on the whole cube; then
+     c48_sections_perf.yaml at layout [6, 1, 1] through `torchrun -m
+     pace_torch.driver.run`, its restarts and diagnostics against phase
+     9's one-rank run; one C12 tile stepped alone from a halo-traffic
+     recording.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -292,11 +306,82 @@ def check_fillz(results):
                 results["K-F"] = (err, ms, plain_ms, bound_ms, bound_by)
 
 
+def check_rank_shapes():
+    """The three kernels at the tile counts of a rank of a (2, 1, 1) or
+    (6, 1, 1) layout (3 and 1 tiles), C48 shapes, against their plain
+    versions on the same inputs: tiles [0, 1) and [3, 6) of the six-tile
+    inputs."""
+    from pace_torch.ops import fillz, fvtp2d, riemann
+    from pace_torch.testing import (
+        TRANSPORT_KEYS,
+        fillz_inputs,
+        sim1_inputs,
+        transport_inputs,
+    )
+
+    def tiles_of(a, t0, t1, axis=0):
+        return np.ascontiguousarray(np.take(a, range(t0, t1), axis=axis))
+
+    cases = []
+    for T, hord in ((8, 8), (1, 6)):
+        full = transport_inputs(48, 79, T)
+        for t0, t1 in ((0, 1), (3, 6)):
+            arrays = [tiles_of(full[k], t0, t1, int(k in ("q_y", "q_x")))
+                      for k in TRANSPORT_KEYS]
+            cases.append((
+                f"K-T T={T} hord {hord}", t1 - t0, arrays, "K-T",
+                lambda *a, hord=hord: fvtp2d.transport_batched_plain(
+                    *a, 48, 3, hord),
+                lambda *a, hord=hord: fvtp2d.transport_batched_cuda(
+                    *a, 48, 3, hord),
+                (slice(None),) * 2 + (slice(3, 52),) * 2))
+    dt, p_fac = 225.0, 0.05
+    full = sim1_inputs(56, 56, 79)
+    q, dp = fillz_inputs(9, 56, 56, 79)
+    for t0, t1 in ((0, 1), (3, 6)):
+        cases.append((
+            "K-S", t1 - t0, [tiles_of(a, t0, t1) for a in full], "K-S",
+            lambda *a: riemann.sim1_solver_plain(*a, dt, p_fac),
+            lambda *a: riemann.sim1_solver_cuda(*a, dt, p_fac), ...))
+        cases.append((
+            "K-F neg_frac 0.3", t1 - t0,
+            [tiles_of(q, t0, t1, 1), tiles_of(dp, t0, t1)], "K-F",
+            lambda q, dp: [torch.stack([fillz.fix_tracer_plain(x, dp)
+                                        for x in q])],
+            lambda q, dp: [fillz.fix_tracers_cuda(q, dp)], ...))
+    for label, tiles, arrays, key, plain_fn, kern_fn, region in cases:
+        for dtype in (torch.float64, torch.float32):
+            args = on(arrays, dtype)
+            plain, kern = plain_fn(*args), kern_fn(*args)
+            torch.cuda.synchronize()
+            err, rel = max_rel(kern, plain, region)
+            bar = 1e-12 if dtype == torch.float64 else 1e-5
+            ms = cuda_ms(lambda: kern_fn(*args))
+            text = ""
+            if dtype == torch.float32:
+                plain_ms = cuda_ms(lambda: plain_fn(*args), warmup=1,
+                                   repeats=3)
+                bound_ms, bound_by = bound(key, args, kern, args[0].numel())
+                text = (f"plain={plain_ms:.4f} ms bound={bound_ms:.4f} ms "
+                        f"({bound_by}) ")
+            log(f"[2] {label} at {tiles} tile{'s' * (tiles > 1)} "
+                f"{str(dtype)[6:]}: max_abs_err={err:.3e} rel={rel:.3e} "
+                f"(bar {bar:g}) kernel={ms:.4f} ms " + text
+                + ("ok" if rel <= bar else "FAIL"))
+            if not rel <= bar:
+                raise AssertionError(f"{label} at {tiles} tiles {dtype}: "
+                                     f"rel err {rel}")
+
+
 # ---------------------------------------------------------------------------
 # phases 3 to 6: the dycore step
 # ---------------------------------------------------------------------------
 
-def make_core(n, dtype, dt, device="cuda", **settings):
+def make_core(n, dtype, dt, device="cuda", scatter=None, topology=None,
+              **settings):
+    """A baroclinic C`n`/79 dycore and its start: of the whole cube, or
+    with `scatter` (`Partition.scatterer(rank)`) and a rank `topology`, of
+    one rank's tiles."""
     from pace_torch.grid.generation import generate_grid_data
     from pace_torch.models.fv3.config import DynamicalCoreConfig
     from pace_torch.models.fv3.dynamics import DynamicalCore
@@ -304,10 +389,12 @@ def make_core(n, dtype, dt, device="cuda", **settings):
     from pace_torch.utils.gridtools import GridSizing
 
     sizing = GridSizing(n, 79)
-    gd = generate_grid_data(n, 79, device=device, dtype=dtype)
+    gd = generate_grid_data(n, 79, device=device, dtype=dtype,
+                            scatter=scatter)
     config = DynamicalCoreConfig(do_sat_adj=False, **settings)
-    core = DynamicalCore(config, sizing, gd, timestep=dt)
-    state = init_baroclinic_state(sizing, device=device, dtype=dtype)
+    core = DynamicalCore(config, sizing, gd, timestep=dt, topology=topology)
+    state = init_baroclinic_state(sizing, device=device, dtype=dtype,
+                                  scatter=scatter)
     return sizing, core, state
 
 
@@ -731,6 +818,8 @@ def run_emulator(card) -> None:
 # ---------------------------------------------------------------------------
 
 EXAMPLES = os.path.join(REPO, "examples", "configs")
+# phase 9's run of c48_sections_perf.yaml, kept for phase 14
+PHASE9_C48 = os.path.join(REPO, "build", "phase9_c48_sections")
 
 
 def yaml_copy(name, work, profile=False, **changes) -> str:
@@ -1050,6 +1139,11 @@ def run_yaml_configs(card) -> dict:
             f"element by element: {'identical' if same else 'DIFFER'}")
         if not same:
             raise AssertionError("restart round trip differs")
+        # phase 14 runs the same yaml over six ranks against these files
+        import shutil
+
+        shutil.rmtree(PHASE9_C48, ignore_errors=True)
+        shutil.copytree(os.path.join(tmp, "c48_sections"), PHASE9_C48)
 
         # c96_baroclinic_shield.yaml, whole (6 steps)
         path = yaml_copy("c96_baroclinic_shield.yaml",
@@ -1071,7 +1165,7 @@ def run_yaml_configs(card) -> dict:
             text = str(err)
         else:
             raise AssertionError("c384: the Driver accepted a 96-device mesh")
-        ok = "item 11" in text
+        ok = "item 11b" in text
         log(f"[9] c384_multihost_emulator.yaml hydrates (mesh layout "
             f"{list(config.mesh.layout)}); Driver raises NotImplementedError:"
             f" {text} {'ok' if ok else 'FAIL'}")
@@ -1627,6 +1721,356 @@ def check_fastpack(card) -> None:
         raise AssertionError("fastpack and numpy.save files differ")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: ranks of a (t, 1, 1) layout, started through torchrun
+# ---------------------------------------------------------------------------
+
+# The C192 grid of tests/test_memory_feasibility.py:47 with the settings of
+# its script (scripts/c384_memory.py:77-81): dycore only, k_split 1,
+# n_split 6, dt 225 s, float32.
+C192 = dict(k_split=1, n_split=6)
+RANKS = 6
+
+
+def _rank_log(rank, msg):
+    if rank == 0:
+        log(f"[14] {msg}")
+
+
+def rank_pair_debug(comm, device):
+    """14.1: two C12/79 float64 steps under pair_debug, the one-rank step on
+    the card (replicated, on every rank) against the ranks of (t, 1, 1)
+    (every rank, t of them) and (2, 1, 1) (ranks 0 and 1), gathered."""
+    import torch.distributed as dist
+
+    from pace_torch.models.fv3.dynamics import DynamicalCore
+    from pace_torch.parallel.comm import Comm
+    from pace_torch.parallel.partition import Partition
+    from pace_torch.parallel.topology import get_topology
+    from pace_torch.utils.pair_debug import (
+        compare_under_placements,
+        layout_placement,
+        replicated,
+    )
+
+    pair = dist.new_group([0, 1])
+    out = {}
+    for layout, group in (((comm.size, 1, 1), None), ((2, 1, 1), pair)):
+        if group is not None and comm.rank >= 2:
+            continue
+        sub = comm if group is None else Comm(device, group)
+        sizing, core, state = make_core(12, torch.float64, 225.0,
+                                        device=device)
+
+        def two_steps(state, grid, topo):
+            stepper = DynamicalCore(core.config, sizing, grid, 225.0,
+                                    topology=topo)
+            for _ in range(2):
+                state = stepper.step_dynamics(state)
+            return state
+
+        t0 = time.perf_counter()
+        report = compare_under_placements(
+            two_steps, (state, core.grid_data, get_topology(12)),
+            replicated, layout_placement(Partition(layout, 12), sub),
+            rtol=1e-12)
+        worst = max(report, key=report.get)
+        out["x".join(map(str, layout))] = dict(
+            worst=worst, max_abs=report[worst],
+            identical=all(v == 0.0 for v in report.values()),
+            seconds=time.perf_counter() - t0)
+        if not out["x".join(map(str, layout))]["identical"]:
+            raise AssertionError(f"layout {layout} against one rank: not "
+                                 f"identical, worst leaf {worst} "
+                                 f"{report[worst]:.3e}")
+    return out
+
+
+def rank_c192(comm, device, n=192):
+    """14.2: C192/79 float32 k1/n6 at (t, 1, 1) (t ranks), one warm-up and
+    three timed steps on every rank; then the state gathered on rank 0
+    against the same four steps of one process on the whole cube.  Returns
+    rank 0's report (None elsewhere)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from pace_torch.parallel.halo import RankTopology
+    from pace_torch.parallel.partition import Partition
+
+    rank, steps = comm.rank, 3
+    partition = Partition((comm.size, 1, 1), n)
+    t0 = time.perf_counter()
+    sizing, core, state = make_core(
+        n, torch.float32, 225.0, device=device,
+        scatter=partition.scatterer(rank),
+        topology=RankTopology(partition, rank, comm), **C192)
+    setup = time.perf_counter() - t0
+    state = core.step_dynamics(state)
+    torch.cuda.synchronize(device)
+    names = [f.name for f in dataclasses.fields(state)]
+    state_bytes = sum(getattr(state, k).nbytes for k in names)
+    comm.barrier()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    reset_launches()
+    comm.start_timing()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = core.step_dynamics(state)
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = read_launches()
+    exchange = comm.timing()
+    peak = torch.cuda.max_memory_allocated(device)
+    check_finite(14, state, sizing)
+    expect = {k: v * steps for k, v in
+              expected_launches(core.config).items()}
+    if launches != expect:
+        raise AssertionError(f"rank {rank}: launches {launches}, expected "
+                             f"{expect}")
+    mine = dict(rank=rank, device=str(device), setup_s=setup, ms=ms,
+                launches=launches, exchanges=exchange["exchanges"] / steps,
+                exchange_bytes=exchange["bytes_sent"] / steps,
+                exchange_ms=(None if exchange["ms"] is None
+                             else exchange["ms"] / steps),
+                state_bytes=state_bytes,
+                temp_bytes=peak - before, peak_bytes=peak)
+    every = comm.all_gather(mine)
+    # one buffer a rank, on the host for gloo and on the card for NCCL
+    flat = torch.cat([getattr(state, k).reshape(-1) for k in names])
+    if comm.backend == "gloo":
+        flat = flat.cpu()
+    shapes = [tuple(getattr(state, k).shape) for k in names]
+    parts = ([torch.empty_like(flat) for _ in range(comm.size)]
+             if rank == 0 else None)
+    dist.gather(flat, parts, dst=0)
+    del state, core, flat
+    torch.cuda.empty_cache()
+    report = None
+    if rank == 0:
+        # the same four steps of one process on the whole cube, while the
+        # other ranks wait
+        sizing, core, full = make_core(n, torch.float32, 225.0,
+                                       device=device, **C192)
+        full = core.step_dynamics(full)
+        torch.cuda.synchronize(device)
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            full = core.step_dynamics(full)
+        torch.cuda.synchronize(device)
+        ms_one = (time.perf_counter() - t0) / steps * 1e3
+        launches_one = read_launches()
+        fields = {}
+        for r, part in enumerate(parts):
+            offset = 0
+            for name, shape in zip(names, shapes):
+                size = int(np.prod(shape))
+                fields.setdefault(name, []).append(
+                    part[offset:offset + size].reshape(shape).cpu().numpy())
+                offset += size
+        differ, worst = [], (None, 0.0)
+        for name in names:
+            got = partition.gather(fields[name])
+            want = getattr(full, name).cpu().numpy()
+            if not np.array_equal(got, want, equal_nan=True):
+                differ.append(name)
+                scale = np.nanmax(np.abs(want)) + 1e-30
+                rel = float(np.nanmax(np.abs(got - want)) / scale)
+                if rel > worst[1] or worst[0] is None:
+                    worst = (name, rel)
+        report = dict(ranks=every, ms_one=ms_one, launches_one=launches_one,
+                      differ=differ, worst=worst)
+        if differ:
+            raise AssertionError(f"C{n} ranks against one process: {differ} "
+                                 f"differ, worst {worst}")
+    comm.barrier()
+    return report
+
+
+def rank_main(out: str) -> None:
+    """`chip_smoke.py --ranks OUT`, one rank of phase 14 under torchrun:
+    14.1 and 14.2 at (t, 1, 1), t the number of processes (6 in phase 14,
+    on one card; on a host with a card a rank, `torchrun --nproc_per_node
+    3 chip_smoke.py --ranks OUT` runs them over NCCL); rank 0 writes
+    OUT/ranks.json."""
+    from pace_torch.ops import _cuda
+    from pace_torch.parallel import comm as comm_mod
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
+    device = comm_mod.rank_device("cuda")
+    comm = comm_mod.init_process_group(device)
+    _cuda.library()
+    _rank_log(comm.rank, f"{comm.size} ranks started by torchrun on "
+              f"{torch.cuda.device_count()} card(s): {comm.describe()}")
+    result = dict(backend=comm.describe(), staging=comm.staging)
+    result["pair_debug"] = rank_pair_debug(comm, device)
+    _rank_log(comm.rank, f"14.1 done: {result['pair_debug']}")
+    result["c192"] = rank_c192(comm, device)
+    if comm.rank == 0:
+        with open(os.path.join(out, "ranks.json"), "w") as f:
+            json.dump(result, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def torchrun(args, cwd, timeout) -> subprocess.CompletedProcess:
+    """`torchrun --standalone --nproc_per_node 6 ARGS` from `cwd`; a
+    child that fails fails the script."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={RANKS}", *args]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    for line in proc.stdout.splitlines():
+        if line.startswith("[14]"):
+            log(line)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-6000:])
+        raise AssertionError(f"torchrun {' '.join(args)}: exit code "
+                             f"{proc.returncode}")
+    return proc
+
+
+def check_replay(card) -> None:
+    """14.4: one C12/79 float64 step recorded on the card, then tile 2
+    alone, its halo calls replayed from the recording."""
+    from pace_torch.parallel.partition import Partition
+    from pace_torch.parallel.traffic import HaloTrafficRecorder
+
+    sizing, core, state = make_core(12, torch.float64, 225.0)
+    recorder = HaloTrafficRecorder.recording()
+    with recorder:
+        full = core.step_dynamics(state)
+    path = os.path.join(REPO, "build", "phase14", "traffic.npz")
+    recorder.save(path)
+    tile = 2
+    _, solo_core, solo = make_core(12, torch.float64, 225.0,
+                                   scatter=Partition((6, 1, 1), 12)
+                                   .scatterer(tile))
+    reset_launches()
+    with HaloTrafficRecorder.load(path).replaying(tile=tile):
+        solo = solo_core.step_dynamics(solo)
+    launches = read_launches()
+    check_launches(14, launches, core.config, 1)
+    differ = [k for k in PROGNOSTICS if not torch.equal(
+        torch.nan_to_num(getattr(solo, k)[0], 1e300),
+        torch.nan_to_num(getattr(full, k)[tile], 1e300))]
+    worst = max((float((getattr(solo, k)[0] - getattr(full, k)[tile])
+                       .abs().nan_to_num(0.0).max())
+                 / (float(getattr(full, k)[tile].abs().nan_to_num(0.0)
+                          .max()) + 1e-30), k) for k in PROGNOSTICS)
+    log(f"[14] 14.4 replay: {len(recorder.calls)} halo results recorded "
+        f"({os.path.getsize(path) / 1e6:.1f} MB npz); tile {tile} stepped "
+        f"alone from the recording: "
+        + ("every prognostic field identical to the whole run's tile"
+           if not differ else f"{differ} differ, worst {worst[1]} "
+           f"{worst[0]:.3e}") + f" on {card}")
+    if worst[0] > 1e-12:
+        raise AssertionError(f"replayed tile: {worst}")
+
+
+def compare_files(one: str, ranks: str) -> list:
+    """Relative paths of the restart and diagnostics files of run `one`,
+    each checked equal in run `ranks` (npz by their arrays, others byte
+    for byte)."""
+    files = sorted(os.path.relpath(os.path.join(d, f), one)
+                   for d, _, fs in os.walk(one) for f in fs
+                   if f.endswith((".npy", ".npz", ".nc")) or f == "time.json")
+    for name in files:
+        a, b = os.path.join(one, name), os.path.join(ranks, name)
+        if name.endswith(".npz"):
+            with np.load(a) as x, np.load(b) as y:
+                same = sorted(x.files) == sorted(y.files) and all(
+                    np.array_equal(x[k], y[k],
+                                   equal_nan=x[k].dtype.kind == "f")
+                    for k in x.files)
+        else:
+            with open(a, "rb") as x, open(b, "rb") as y:
+                same = x.read() == y.read()
+        if not same:
+            raise AssertionError(f"{name}: the ranks' file differs")
+    return files
+
+
+def run_ranks(card, phase9_c48: str) -> dict:
+    """Phase 14.  Returns each kernel's launches on each rank in the C192
+    run's timed steps."""
+    import shutil
+
+    t14 = time.perf_counter()
+    out = os.path.join(REPO, "build", "phase14")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+
+    # 14.1 and 14.2 in one torchrun of six ranks
+    torchrun([os.path.join(REPO, "chip_smoke.py"), "--ranks", out], REPO,
+             timeout=900)
+    with open(os.path.join(out, "ranks.json")) as f:
+        res = json.load(f)
+    log(f"[14] halo exchange: {res['backend']}")
+    for layout, r in res["pair_debug"].items():
+        log(f"[14] 14.1 C12/79 float64, two steps, pair_debug one rank "
+            f"against layout {layout}: worst leaf {r['worst']} max abs "
+            f"{r['max_abs']:.3e}, every leaf identical (required) "
+            f"({r['seconds']:.1f} s)")
+    c192 = res["c192"]
+    for r in c192["ranks"]:
+        log(f"[14] 14.2 C192/79 float32 k1/n6 rank {r['rank']} on "
+            f"{r['device']}: set-up {r['setup_s']:.1f} s, "
+            f"{r['ms']:.3f} ms/step, launches a step "
+            + "/".join(str(r["launches"][k] // 3)
+                       for k in ("K-T", "K-S", "K-F"))
+            + f", {r['exchanges']:.0f} exchanges a step, "
+            f"{r['exchange_bytes'] / 1e6:.3f} MB sent a step (from the "
+            f"plan), exchange {r['exchange_ms']:.3f} ms a step (CUDA "
+            f"events); tools memory: state {r['state_bytes']} bytes, "
+            f"temporary {r['temp_bytes']}, peak {r['peak_bytes']}")
+    slowest = max(r["ms"] for r in c192["ranks"])
+    log(f"[14] 14.2 ms/step: one process on the whole cube "
+        f"{c192['ms_one']:.3f} (launches a step "
+        + "/".join(str(c192["launches_one"][k] // 3)
+                   for k in ("K-T", "K-S", "K-F"))
+        + f"), six ranks sharing the card {slowest:.3f} (slowest rank) on "
+        f"{card}")
+    log(f"[14] 14.2 gathered state after 4 steps against one process: "
+        + ("all 32 fields identical" if not c192["differ"] else
+           f"{c192['differ']} differ, worst {c192['worst']}"))
+    if c192["differ"]:
+        raise AssertionError(f"C192 ranks against one process: {c192}")
+
+    # 14.3 c48_sections_perf.yaml at layout [6, 1, 1] through torchrun
+    work = os.path.join(out, "c48_sections")
+    path = yaml_copy("c48_sections_perf.yaml", work,
+                     restart_config=dict(save_restart=True,
+                                         intermediate_restart=[3]),
+                     mesh=dict(layout=[RANKS, 1, 1]))
+    t0 = time.perf_counter()
+    torchrun(["-m", "pace_torch.driver.run", path, "--log-level",
+              "WARNING"], work, timeout=600)
+    with open(os.path.join(work, "c48_sections_perf.json")) as f:
+        report = json.load(f)
+    files = compare_files(phase9_c48, work)
+    ms = np.mean([t["mainloop"] for t in report["times_per_step"][1:]]) * 1e3
+    log(f"[14] 14.3 c48_sections_perf.yaml at layout [6, 1, 1] through "
+        f"torchrun -m pace_torch.driver.run: {len(files)} restart (step 3 "
+        f"and final) and diagnostics files equal to phase 9's one-rank run; "
+        f"{len(report['times_per_step'])} steps, {ms:.3f} ms/step (mainloop "
+        f"without step 1, slowest rank), SYPD {report['sypd']:.4f} "
+        f"({time.perf_counter() - t0:.1f} s) on {card}")
+
+    # 14.4 one tile from a recording
+    check_replay(card)
+    log(f"[14] phase 14 took {time.perf_counter() - t14:.0f} s")
+    return {k: [r["launches"][k] for r in c192["ranks"]]
+            for k in ("K-T", "K-S", "K-F")}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
@@ -1662,6 +2106,7 @@ def main() -> None:
     check_transport(results)
     check_sim1(results)
     check_fillz(results)
+    check_rank_shapes()
 
     # ---- phase 3
     check_c12_digests()
@@ -1708,13 +2153,17 @@ def main() -> None:
     case_savepoints(KERNEL_CASES, 48, (3, 3))
     check_tools(card)
     check_fastpack(card)
-    log(f"[13] phase 13 took {time.perf_counter() - t13:.0f} s; all phases "
-        f"took {time.perf_counter() - started:.0f} s")
+    log(f"[13] phase 13 took {time.perf_counter() - t13:.0f} s")
+
+    # ---- phase 14: ranks of a (t, 1, 1) layout through torchrun
+    launches_ranks = run_ranks(card, PHASE9_C48)
+    log(f"[14] all phases took {time.perf_counter() - started:.0f} s")
 
     kernels = [
         dict(**KERNELS[k], route="cuda", launches=launches[k],
              launches_coupled=coupled[k], launches_yaml=yaml_launches[k],
              launches_subcycle=subcycle[k],
+             launches_ranks=launches_ranks[k],
              max_abs_err=results[k][0],
              ms=results[k][1],
              plain_ms=results[k][2], bound_ms=results[k][3],
@@ -1729,4 +2178,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ranks"]:
+        rank_main(sys.argv[2])
+    else:
+        main()

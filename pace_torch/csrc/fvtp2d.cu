@@ -2,7 +2,9 @@
 //
 // Replaces pace_tpu/ops/pallas/fvtp2d_pallas.py:transport_batched (its
 // bodies _k1_inner_y, _k2_x_passes and _k3_outer_y).  For T stacked fields
-// sharing Courant numbers, area fluxes, unit fluxes and metrics it returns
+// of `tiles` tiles (6 for the whole cube, 6 / t for a rank of a (t, 1, 1)
+// layout) sharing Courant numbers, area fluxes, unit fluxes and metrics it
+// returns
 //   fx = 0.5 * (xppm(qay) + xppm(q_x)) * xmf
 //   fy = 0.5 * (yppm(qax) + yppm(q_y)) * ymf
 // with qay / qax the fields advected by the inner y / x PPM pass, exactly
@@ -370,8 +372,8 @@ __global__ void __launch_bounds__(KC * LANES, sizeof(R) == 4 ? MINB : 1)
                      const R* __restrict__ xmf, const R* __restrict__ ymf,
                      const R* __restrict__ dxa, const R* __restrict__ dya,
                      const R* __restrict__ area, R* __restrict__ fx,
-                     R* __restrict__ fy, int N, int nz, int n, int h,
-                     int tiles_j) {
+                     R* __restrict__ fy, int tiles, int N, int nz, int n,
+                     int h, int tiles_j) {
   __shared__ R qay_s[XI][BJ][KC];   // qay on i0-3 .. i0+BI+1, own j
   __shared__ R qax_s[BI][XJ][KC];   // qax on own i, j0-3 .. j0+BJ+1
   __shared__ R fyin_s[BI][BJ][KC];  // inner y flux on own points
@@ -381,7 +383,7 @@ __global__ void __launch_bounds__(KC * LANES, sizeof(R) == 4 ? MINB : 1)
   const int ti = blockIdx.x / tiles_j;
   const int i0 = ti * BI, j0 = (blockIdx.x - ti * tiles_j) * BJ;
   const int k = blockIdx.y * KC + tk;
-  const int tile = blockIdx.z % 6;
+  const int tile = blockIdx.z % tiles;
   const long plane = (long)N * N * nz;
   const long field_off = (long)blockIdx.z * plane + k;
   const long tile_off = (long)tile * plane + k;
@@ -474,11 +476,12 @@ int dispatch(const void* q_y, const void* q_x, const void* crx,
              const void* cry, const void* xfx, const void* yfx,
              const void* xmf, const void* ymf, const void* dxa,
              const void* dya, const void* area, void* fx, void* fy, int T,
-             int N, int nz, int n, int h, int hord, void* stream) {
+             int tiles, int N, int nz, int n, int h, int hord,
+             void* stream) {
   auto c = [](const void* p) { return static_cast<const R*>(p); };
   auto m = [](void* p) { return static_cast<R*>(p); };
   const int tiles_i = (N + BI - 1) / BI, tiles_j = (N + BJ - 1) / BJ;
-  const dim3 grid(tiles_i * tiles_j, (nz + KC - 1) / KC, T * 6);
+  const dim3 grid(tiles_i * tiles_j, (nz + KC - 1) / KC, T * tiles);
   const dim3 block(KC, LANES);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // ord_inner = 8 at hord 10 and hord otherwise: the same class either way
@@ -486,7 +489,7 @@ int dispatch(const void* q_y, const void* q_x, const void* crx,
 #define PACE_LAUNCH(CLS)                                                    \
   transport_kernel<R, CLS><<<grid, block, 0, s>>>(                          \
       c(q_y), c(q_x), c(crx), c(cry), c(xfx), c(yfx), c(xmf), c(ymf),       \
-      c(dxa), c(dya), c(area), m(fx), m(fy), N, nz, n, h, tiles_j)
+      c(dxa), c(dya), c(area), m(fx), m(fy), tiles, N, nz, n, h, tiles_j)
   if (mord >= 8)
     PACE_LAUNCH(8);
   else if (mord == 5)
@@ -503,10 +506,11 @@ int dispatch(const void* q_y, const void* q_x, const void* crx,
   const void *q_y, const void *q_x, const void *crx, const void *cry,      \
       const void *xfx, const void *yfx, const void *xmf, const void *ymf,  \
       const void *dxa, const void *dya, const void *area, void *fx,        \
-      void *fy, int T, int N, int nz, int n, int h, int hord, void *stream
+      void *fy, int T, int tiles, int N, int nz, int n, int h, int hord,  \
+      void *stream
 #define FVTP2D_PASS                                                       \
-  q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area, fx, fy, T, N, nz, \
-      n, h, hord, stream
+  q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area, fx, fy, T, tiles, \
+      N, nz, n, h, hord, stream
 
 extern "C" int pace_fvtp2d_f32(FVTP2D_ARGS) {
   return dispatch<float>(FVTP2D_PASS);

@@ -7,6 +7,8 @@ npz (one file per output time), NetCDF3 time-series chunks or a Zarr v2
 store.  The files are those of the reference package.  The selected fields
 are cut to the compute domain and the column integrals taken on the
 device; each output then reads the device once (`utils/host.to_host`).
+In a multi-rank run every rank sends its tiles' arrays to rank 0, which
+writes the whole cube's: the files of a one-rank run.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import numpy as np
 
 from pace_torch.models.fv3.state import FIELD_METADATA
 from pace_torch.utils.constants import GRAV
-from pace_torch.utils.host import to_host
+from pace_torch.utils.host import on_root, to_host
 
 GRID_NAMES = ("lon", "lat", "lon_agrid", "lat_agrid", "area")
 
@@ -81,14 +83,15 @@ class DiagnosticsConfig:
                     f"tracer {tracer!r} (not a DycoreState field)"
                 )
 
-    def diagnostics_factory(self, sizing=None) -> "Diagnostics":
+    def diagnostics_factory(self, sizing=None, ranks=None) -> "Diagnostics":
+        """`ranks`: (Partition, Comm) of a multi-rank run."""
         if self.path is None:
             return NullDiagnostics()
         if self.output_format == "netcdf":
-            return NetCDFDiagnostics(self, sizing)
+            return NetCDFDiagnostics(self, sizing, ranks)
         if self.output_format == "zarr":
-            return ZarrDiagnostics(self, sizing)
-        return NpzDiagnostics(self, sizing)
+            return ZarrDiagnostics(self, sizing, ranks)
+        return NpzDiagnostics(self, sizing, ranks)
 
 
 class Diagnostics:
@@ -116,10 +119,13 @@ def _grid_arrays(grid_data) -> dict:
 
 
 class NpzDiagnostics(Diagnostics):
-    def __init__(self, config: DiagnosticsConfig, sizing=None):
+    def __init__(self, config: DiagnosticsConfig, sizing=None, ranks=None):
         self.config = config
         self.sizing = sizing
-        os.makedirs(config.path, exist_ok=True)
+        self.ranks = ranks
+        self.root = ranks is None or ranks[1].rank == 0
+        if self.root:
+            os.makedirs(config.path, exist_ok=True)
         self._index = 0
 
     def _compute_domain(self, arr, name=None):
@@ -138,9 +144,10 @@ class NpzDiagnostics(Diagnostics):
                 nj = n + 1
         return arr[:, h:h + ni, h:h + nj]
 
-    def _collect(self, state) -> dict:
+    def _collect(self, state) -> Optional[dict]:
         """The configured (and derived) variables, halo-stripped, as numpy
-        arrays read from the device in one transfer."""
+        arrays read from the device in one transfer (the whole cube's on
+        rank 0, None on the other ranks)."""
         out = {}
         for name in self.config.names:
             out[name] = self._compute_domain(getattr(state, name), name)
@@ -155,10 +162,15 @@ class NpzDiagnostics(Diagnostics):
                 out[f"{name}_z{zs.level}"] = self._compute_domain(
                     getattr(state, name)[..., zs.level], name
                 )
-        return to_host(out)
+        return on_root(to_host(out), self.ranks)
+
+    def _grid(self, grid_data) -> Optional[dict]:
+        return on_root(_grid_arrays(grid_data), self.ranks)
 
     def store(self, time, state):
         out = self._collect(state)
+        if out is None:
+            return
         if time is not None:
             out["time"] = np.asarray(str(time))
         fname = os.path.join(
@@ -168,8 +180,9 @@ class NpzDiagnostics(Diagnostics):
         self._index += 1
 
     def store_grid(self, grid_data):
-        np.savez(os.path.join(self.config.path, "grid.npz"),
-                 **_grid_arrays(grid_data))
+        grid = self._grid(grid_data)
+        if grid is not None:
+            np.savez(os.path.join(self.config.path, "grid.npz"), **grid)
 
 
 def _column_integral(q, delp):
@@ -183,25 +196,29 @@ class NetCDFDiagnostics(NpzDiagnostics):
     (reference monitor/netcdf_monitor.py:104); shares variable collection
     (incl. derived and z-select) with the npz path."""
 
-    def __init__(self, config: DiagnosticsConfig, sizing=None):
+    def __init__(self, config: DiagnosticsConfig, sizing=None, ranks=None):
         from pace_torch.utils.netcdf import NetCDFMonitor
 
-        super().__init__(config, sizing)
-        self._monitor = NetCDFMonitor(config.path)
+        super().__init__(config, sizing, ranks)
+        self._monitor = NetCDFMonitor(config.path) if self.root else None
 
     def store(self, time, state):
         out = self._collect(state)
+        if out is None:
+            return
         out["time"] = time
         self._monitor.store(out)
 
     def store_grid(self, grid_data):
         from pace_torch.utils.netcdf import write_dataset
 
-        write_dataset(os.path.join(self.config.path, "grid.nc"),
-                      _grid_arrays(grid_data))
+        grid = self._grid(grid_data)
+        if grid is not None:
+            write_dataset(os.path.join(self.config.path, "grid.nc"), grid)
 
     def cleanup(self):
-        self._monitor.cleanup()
+        if self._monitor is not None:
+            self._monitor.cleanup()
 
 
 class ZarrDiagnostics(NpzDiagnostics):
@@ -209,19 +226,24 @@ class ZarrDiagnostics(NpzDiagnostics):
     utils/zarrlite.py; reference monitor/zarr_monitor.py:37 layout:
     one (time, tile, x, y[, z]) array per variable)."""
 
-    def __init__(self, config: DiagnosticsConfig, sizing=None):
+    def __init__(self, config: DiagnosticsConfig, sizing=None, ranks=None):
         from pace_torch.utils.zarrlite import ZarrMonitor
 
-        super().__init__(config, sizing)
-        self._monitor = ZarrMonitor(os.path.join(config.path, "state.zarr"))
+        super().__init__(config, sizing, ranks)
+        self._monitor = (ZarrMonitor(os.path.join(config.path, "state.zarr"))
+                         if self.root else None)
 
     def store(self, time, state):
         out = self._collect(state)
+        if out is None:
+            return
         out["time"] = time
         self._monitor.store(out)
 
     def store_grid(self, grid_data):
         from pace_torch.utils.zarrlite import ZarrMonitor
 
-        grid_store = ZarrMonitor(os.path.join(self.config.path, "grid.zarr"))
-        grid_store.store(_grid_arrays(grid_data))
+        grid = self._grid(grid_data)
+        if grid is not None:
+            ZarrMonitor(os.path.join(self.config.path, "grid.zarr")).store(
+                grid)

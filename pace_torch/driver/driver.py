@@ -11,8 +11,13 @@ intermediate restarts; `cleanup` writes the performance report, the grid
 and the final restart.
 
 The configuration is the reference package's, key for key, so every yaml
-file it reads hydrates here; a device mesh of more than one device raises
-`NotImplementedError` when the `Driver` is built.
+file it reads hydrates here.  A `mesh` layout `(t, 1, 1)` runs `t` ranks
+(processes started by `torchrun`, or by the caller with `multihost`), each
+owning `6 / t` whole tiles: each rank builds and steps its tiles, the halo
+updates exchange between ranks (parallel/halo.py `RankTopology`), and
+diagnostics, restarts and the performance report are gathered to rank 0
+and written once, the files of a one-rank run.  A layout that splits tiles
+along x or y raises `NotImplementedError` naming ROADMAP item 11b.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ import torch
 from pace_torch.driver import diagnostics as diag_mod
 from pace_torch.driver._from_dict import from_dict
 from pace_torch.driver.initialization import InitializerSelector
-from pace_torch.driver.performance import PerformanceConfig
+from pace_torch.driver.performance import NullProfiler, PerformanceConfig
 from pace_torch.driver.restart import RestartConfig
 from pace_torch.driver.safety_checks import (
     SafetyChecker,
@@ -44,6 +49,10 @@ from pace_torch.models.fv3.dynamics import DynamicalCore
 from pace_torch.models.physics.config import PhysicsConfig
 from pace_torch.models.physics.physics import Physics
 from pace_torch.ops.fv_subgridz import dry_convective_adjustment
+from pace_torch.parallel import comm as comm_mod
+from pace_torch.parallel.halo import RankTopology
+from pace_torch.parallel.partition import Partition, check_layout
+from pace_torch.utils import constants
 from pace_torch.utils.gridtools import GridSizing
 
 logger = logging.getLogger("pace_torch.driver")
@@ -51,9 +60,15 @@ logger = logging.getLogger("pace_torch.driver")
 
 @dataclasses.dataclass
 class MeshConfig:
-    """Device mesh over (tile, x, y), as the reference package's.  The port
-    runs one device: any other layout, a multi-host run or a DCN mesh
-    raises at `Driver` construction (ROADMAP Queue 1 item 11)."""
+    """Rank layout over (tile, x, y), as the reference package's device
+    mesh; the tile count divides 6 and `dcn_mesh_shape` (the hosts' grid)
+    divides the layout elementwise, ranks numbered host-major.
+
+    Multi-host: `multihost: true` starts the process group from
+    `coordinator_address` (host:port of rank 0), `num_processes` and
+    `process_id`, or, without a coordinator address, from the environment
+    `torchrun` sets (`env://`), as a one-host run of more than one rank
+    does."""
 
     layout: Tuple[int, int, int] = (1, 1, 1)
     multihost: bool = False
@@ -62,13 +77,39 @@ class MeshConfig:
     process_id: Optional[int] = None
     dcn_mesh_shape: Optional[Tuple[int, int, int]] = None
 
-    def check_single_device(self):
-        if (tuple(self.layout) != (1, 1, 1) or self.multihost
-                or self.dcn_mesh_shape is not None):
+    @property
+    def ranks(self) -> int:
+        t, x, y = check_layout(self.layout, self.dcn_mesh_shape)
+        return t * x * y
+
+    def build(self, n: int, halo: int, device):
+        """Validate the layout and, for more than one rank, join (or start)
+        the process group: returns (Partition, Comm), or None for one
+        rank.  x or y above 1 raises NotImplementedError."""
+        layout = check_layout(self.layout, self.dcn_mesh_shape)
+        if layout[1] > 1 or layout[2] > 1:
             raise NotImplementedError(
-                f"mesh layout={list(self.layout)} multihost={self.multihost}"
-                f" dcn_mesh_shape={self.dcn_mesh_shape} is not ported: the "
-                "port runs one device (ROADMAP Queue 1 item 11, multi-GPU)")
+                f"mesh layout={list(layout)} splits tiles along x or y: the "
+                "port's ranks own whole tiles, layouts (t, 1, 1) with t in "
+                "{1, 2, 3, 6}; the x/y decomposition is ROADMAP item 11b")
+        ranks = self.ranks
+        if ranks == 1 and not self.multihost:
+            return None
+        if self.multihost and self.coordinator_address is not None:
+            if self.num_processes is None or self.process_id is None:
+                raise ValueError("multihost with a coordinator_address needs "
+                                 "num_processes and process_id")
+            comm = comm_mod.init_process_group(
+                device, f"tcp://{self.coordinator_address}",
+                self.num_processes, self.process_id)
+        else:
+            comm = comm_mod.init_process_group(device)
+        if comm.size != ranks:
+            raise ValueError(f"mesh layout {list(layout)} needs {ranks} "
+                             f"ranks, the process group has {comm.size}")
+        if ranks == 1:
+            return None
+        return Partition(layout, n, halo, self.dcn_mesh_shape), comm
 
 
 @dataclasses.dataclass
@@ -91,7 +132,7 @@ class DriverConfig:
         nx_tile: gridpoints per horizontal tile dimension
         nz: vertical levels
         dt_atmos: timestep (s)
-        mesh: device-mesh layout (one device)
+        mesh: rank layout (whole tiles per rank)
         grid_config: stretched-grid / eta-file options
         dtype: "float32" or "float64"
     """
@@ -160,13 +201,21 @@ class Driver:
         if config.dtype not in ("float32", "float64"):
             raise ValueError(f"dtype must be float32 or float64, "
                              f"got {config.dtype!r}")
-        config.mesh.check_single_device()
         self.config = config
-        self.device = torch.device(device)
+        # a rank of several on "cuda" runs on cuda:LOCAL_RANK
+        self.device = (comm_mod.rank_device(device)
+                       if config.mesh.ranks > 1 else torch.device(device))
+        # (Partition, Comm) of a multi-rank run, else None
+        self.ranks = config.mesh.build(config.nx_tile,
+                                       constants.N_HALO_DEFAULT, self.device)
+        self.partition, self.comm = self.ranks or (None, None)
+        self.rank = 0 if self.comm is None else self.comm.rank
         self.time = config.initialization.start_time
         perf = config.performance_config
         self.performance_collector = perf.build(self.device)
-        self.profiler = perf.build_profiler(self.device)
+        # one trace: rank 0's
+        self.profiler = (perf.build_profiler(self.device) if self.rank == 0
+                         else NullProfiler())
         dtype = getattr(torch, config.dtype)
 
         with self.performance_collector.total_timer.clock("initialization"):
@@ -180,14 +229,21 @@ class Driver:
                 logger.info("CUDA kernels: %s (built in %.1f s)",
                             info.path, info.seconds)
             sizing = GridSizing(config.nx_tile, config.nz)
+            # a rank builds its tiles of the grid and the initial state by
+            # computing the whole cube on the host and cutting it
+            scatter, topology = None, None
+            if self.partition is not None:
+                scatter = self.partition.scatterer(self.rank)
+                topology = RankTopology(self.partition, self.rank, self.comm)
             gc = config.grid_config
             grid_data = generate_grid_data(
                 config.nx_tile, config.nz, device=self.device, dtype=dtype,
                 stretch_factor=gc.stretch_factor, lon_target=gc.lon_target,
                 lat_target=gc.lat_target, eta_file=gc.eta_file,
+                scatter=scatter,
             )
             dycore_state = config.initialization.get_dycore_state(
-                sizing, self.device, dtype)
+                sizing, self.device, dtype, scatter)
             self.state = DriverState(
                 dycore_state=dycore_state, grid_data=grid_data,
                 sizing=sizing, time=self.time,
@@ -200,7 +256,7 @@ class Driver:
                 if perf.sections else None)
             self.dycore = DynamicalCore(
                 config.dycore_config, sizing, grid_data, config.dt_atmos,
-                timer=self._section_timer)
+                timer=self._section_timer, topology=topology)
             if not (config.dycore_only or config.disable_step_physics):
                 # a Python float, read once: the step never asks the device
                 self._ptop = float(grid_data.vertical.ptop)
@@ -219,9 +275,10 @@ class Driver:
                 self.physics = None
             self._step = self._build_step()
             self.diagnostics = (
-                config.diagnostics_config.diagnostics_factory(sizing)
+                config.diagnostics_config.diagnostics_factory(
+                    sizing, self.ranks)
             )
-            self.safety_checker = SafetyChecker(sizing)
+            self.safety_checker = SafetyChecker(sizing, self.comm)
             if config.safety_check_frequency:
                 register_default_checks()
 
@@ -300,7 +357,7 @@ class Driver:
                         self.state.dycore_state
                     )
                 config.restart_config.write_intermediate_if_enabled(
-                    self.state, step + 1, self.time
+                    self.state, step + 1, self.time, ranks=self.ranks
                 )
         self.profiler.dump_stats()
 
@@ -311,17 +368,23 @@ class Driver:
         Called from run.py's try/finally, so it must survive a crashed
         step: the state is that of the last completed step, and each flush
         is independent, so a failure in one is logged and does not mask
-        the original exception or block the others."""
-        report = self.performance_collector.write_out_performance(
-            f"torch/{self.device.type}", self.config.dt_atmos
-        )
+        the original exception or block the others.  Over ranks each timer
+        of the report is the maximum over the ranks, and rank 0 writes the
+        files."""
+        collector = self.performance_collector
+        if self.comm is not None:
+            collector.take_max(self.comm.all_gather(collector.times()))
+        report = {}
+        if self.rank == 0:
+            report = collector.write_out_performance(
+                f"torch/{self.device.type}", self.config.dt_atmos)
         for what, flush in (
             ("grid diagnostics",
              lambda: self.diagnostics.store_grid(self.state.grid_data)),
             ("diagnostics", self.diagnostics.cleanup),
             ("final restart",
              lambda: self.config.restart_config.write_final_if_enabled(
-                 self.state, self.time)),
+                 self.state, self.time, ranks=self.ranks)),
         ):
             try:
                 flush()

@@ -31,8 +31,9 @@ class Initializer(abc.ABC):
         ...
 
     @abc.abstractmethod
-    def get_dycore_state(self, sizing, device, dtype):
-        ...
+    def get_dycore_state(self, sizing, device, dtype, scatter=None):
+        """The initial DycoreState on `device` with `dtype`: the whole cube,
+        or one rank's part (`scatter`, `Partition.scatterer(rank)`)."""
 
 
 @dataclasses.dataclass
@@ -45,12 +46,13 @@ class BaroclinicInit(Initializer):
     def start_time(self) -> datetime:
         return datetime.fromisoformat(self.start_time_str)
 
-    def get_dycore_state(self, sizing, device, dtype):
+    def get_dycore_state(self, sizing, device, dtype, scatter=None):
         from pace_torch.models.fv3.init.baroclinic import (
             init_baroclinic_state,
         )
 
-        return init_baroclinic_state(sizing, device=device, dtype=dtype)
+        return init_baroclinic_state(sizing, device=device, dtype=dtype,
+                                     scatter=scatter)
 
 
 @dataclasses.dataclass
@@ -63,10 +65,11 @@ class TropicalCycloneConfig(Initializer):
     def start_time(self) -> datetime:
         return datetime.fromisoformat(self.start_time_str)
 
-    def get_dycore_state(self, sizing, device, dtype):
+    def get_dycore_state(self, sizing, device, dtype, scatter=None):
         from pace_torch.models.fv3.init.tropical_cyclone import init_tc_state
 
-        return init_tc_state(sizing, device=device, dtype=dtype)
+        return init_tc_state(sizing, device=device, dtype=dtype,
+                             scatter=scatter)
 
 
 @dataclasses.dataclass
@@ -80,11 +83,11 @@ class RestartInit(Initializer):
     def start_time(self) -> datetime:
         return datetime.fromisoformat(self.start_time_str)
 
-    def get_dycore_state(self, sizing, device, dtype):
+    def get_dycore_state(self, sizing, device, dtype, scatter=None):
         from pace_torch.driver.restart import load_restart_arrays
 
         return DycoreState.from_numpy(load_restart_arrays(self.path),
-                                      device, dtype)
+                                      device, dtype, scatter)
 
 
 @dataclasses.dataclass
@@ -113,7 +116,7 @@ class FortranRestartInit(Initializer):
             return get_current_date_from_coupler_res(coupler)
         return datetime(2000, 1, 1)
 
-    def get_dycore_state(self, sizing, device, dtype):
+    def get_dycore_state(self, sizing, device, dtype, scatter=None):
         from pace_torch.utils.legacy_restart import open_restart
 
         arrays = open_restart(self.path, sizing, label=self.label,
@@ -123,7 +126,7 @@ class FortranRestartInit(Initializer):
         arrays.pop("u_srf", None)
         arrays.pop("v_srf", None)
         return DycoreState.from_numpy({**zeros_numpy(sizing), **arrays},
-                                      device, dtype)
+                                      device, dtype, scatter)
 
 
 @dataclasses.dataclass
@@ -140,14 +143,15 @@ class PredefinedStateInit(Initializer):
     def start_time(self) -> datetime:
         return datetime.fromisoformat(self.start_time_str)
 
-    def get_dycore_state(self, sizing, device, dtype):
+    def get_dycore_state(self, sizing, device, dtype, scatter=None):
         if self.dycore_state is None:
             raise ValueError(
                 "predefined initializer requires a dycore_state object"
             )
+        cut = scatter or (lambda a: a)
         return DycoreState(**{
-            f.name: getattr(self.dycore_state, f.name).to(device=device,
-                                                          dtype=dtype)
+            f.name: cut(getattr(self.dycore_state, f.name)).to(
+                device=device, dtype=dtype)
             for f in dataclasses.fields(DycoreState)
         })
 
@@ -172,8 +176,9 @@ class InitializerSelector(Initializer):
     def start_time(self) -> datetime:
         return self.config.start_time
 
-    def get_dycore_state(self, sizing, device, dtype):
-        return self.config.get_dycore_state(sizing, device, dtype)
+    def get_dycore_state(self, sizing, device, dtype, scatter=None):
+        return self.config.get_dycore_state(sizing, device, dtype,
+                                            scatter)
 
     @classmethod
     def from_dict(cls, config: dict):

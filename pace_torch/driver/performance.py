@@ -91,6 +91,8 @@ class PerformanceCollector:
         self.timestep_timer = Timer(device=device)
         self.times_per_step: List[dict] = []
         self._t0: Optional[float] = None
+        # the totals' maximum over ranks, once take_max has run
+        self._max_totals: Optional[dict] = None
 
     def start_step(self):
         self._t0 = time.perf_counter()
@@ -101,6 +103,22 @@ class PerformanceCollector:
             dict(mainloop=dt, **self.timestep_timer.times)
         )
         self.timestep_timer.reset()
+
+    def times(self) -> dict:
+        """This rank's timers: per step and totals."""
+        return dict(times_per_step=self.times_per_step,
+                    total_times=self.total_timer.times)
+
+    def take_max(self, every_rank: list):
+        """Replace the timers by their maximum over ranks (`times()` of
+        every rank): the slowest rank sets each step's pace."""
+        steps = [r["times_per_step"] for r in every_rank]
+        self.times_per_step = [
+            {k: max(s[i][k] for s in steps) for k in steps[0][i]}
+            for i in range(min(len(s) for s in steps))]
+        totals = [r["total_times"] for r in every_rank]
+        self._max_totals = {k: max(t[k] for t in totals)
+                            for k in totals[0]}
 
     def sypd(self, dt_atmos: float) -> float:
         """Simulated years per wall-clock day, excluding the first step."""
@@ -119,7 +137,7 @@ class PerformanceCollector:
             dt_atmos=dt_atmos,
             sypd=self.sypd(dt_atmos),
             times_per_step=self.times_per_step,
-            total_times=self.total_timer.times,
+            total_times=self._max_totals or self.total_timer.times,
         )
         fname = f"{path}/{self.experiment_name}_perf.json"
         with open(fname, "w") as f:
@@ -137,6 +155,9 @@ class NullPerformanceCollector(PerformanceCollector):
         pass
 
     def end_step(self):
+        pass
+
+    def take_max(self, every_rank: list):
         pass
 
     def write_out_performance(self, backend, dt_atmos, path="."):

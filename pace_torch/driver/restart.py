@@ -7,7 +7,9 @@ the threaded native writer (`_native/fastpack`, built with g++ at first
 use; where it cannot be built the write raises), the layout the reference
 package's writer produces; `format: netcdf` writes `dycore_state.nc`.
 `load_restart_arrays` reads either, and the single `dycore_state.npz` the
-reference package falls back to.
+reference package falls back to.  In a multi-rank run rank 0 writes the
+whole cube's restart from every rank's tiles; each rank reads its own
+tiles back (`RestartInit`).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import Optional
 
 import numpy as np
 
-from pace_torch.utils.host import to_host
+from pace_torch.utils.host import on_root, to_host
 
 
 @dataclasses.dataclass
@@ -37,26 +39,36 @@ class RestartConfig:
                 f"restart format must be 'npz' or 'netcdf', got {self.format}"
             )
 
-    def write_final_if_enabled(self, state, time, path: Optional[str] = None):
+    def write_final_if_enabled(self, state, time, path: Optional[str] = None,
+                               ranks=None):
         if self.save_restart:
             write_restart(
-                state.dycore_state, time, path or self.path, self.format
+                state.dycore_state, time, path or self.path, self.format,
+                ranks,
             )
 
-    def write_intermediate_if_enabled(self, state, step: int, time):
+    def write_intermediate_if_enabled(self, state, step: int, time,
+                                      ranks=None):
         if step in self.intermediate_restart:
             write_restart(
                 state.dycore_state, time,
                 os.path.join(self.path, f"step_{step:06d}"), self.format,
+                ranks,
             )
 
 
-def write_restart(dycore_state, time, path: str, format: str = "npz"):
-    os.makedirs(path, exist_ok=True)
-    arrays = to_host({
+def write_restart(dycore_state, time, path: str, format: str = "npz",
+                  ranks=None):
+    """Write the restart of `dycore_state`; with `ranks` ((Partition,
+    Comm) of a multi-rank run) every rank calls this and rank 0 writes
+    the whole cube's."""
+    arrays = on_root(to_host({
         f.name: getattr(dycore_state, f.name)
         for f in dataclasses.fields(dycore_state)
-    })
+    }), ranks)
+    if arrays is None:
+        return
+    os.makedirs(path, exist_ok=True)
     if format == "netcdf":
         from pace_torch.utils.netcdf import write_dataset
 

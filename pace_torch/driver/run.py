@@ -6,12 +6,23 @@ argparse here).  Runs on the card unless `--device cpu` is given.  The
 performance report `<experiment_name>_perf.json` is written to the current
 directory; with `performance_config.profile_dir` a Chrome trace of the time
 loop is written to `<profile_dir>/trace.json`.
+
+A config whose `mesh.layout` is `[t, 1, 1]` runs under torchrun, one
+process a rank:
+
+    torchrun --nproc_per_node t -m pace_torch.driver.run <config.yaml>
+
+Each rank reads RANK, LOCAL_RANK and WORLD_SIZE from torchrun's
+environment and runs on `cuda:LOCAL_RANK` (`--device cpu`: on the CPU,
+exchanging through gloo); rank 0 writes the files.  A one-rank config runs
+without torchrun.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
 
@@ -41,23 +52,44 @@ def main(argv=None):
     )
     logger = logging.getLogger("pace_torch.driver")
 
+    import torch.distributed as dist
+
     from pace_torch.driver.driver import Driver, DriverConfig
 
     config = DriverConfig.from_yaml(args.config_path)
-    logger.info("initializing driver on %s (n=%d, nz=%d, dt=%gs, %d steps)",
-                args.device, config.nx_tile, config.nz, config.dt_atmos,
-                config.n_timesteps())
-    driver = Driver(config, device=args.device)
-    logger.info("stepping %d timesteps", config.n_timesteps())
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if world != config.mesh.ranks and not config.mesh.multihost:
+        raise ValueError(
+            f"{world} processes for mesh layout {list(config.mesh.layout)} "
+            f"of {config.mesh.ranks} ranks: give torchrun --nproc_per_node "
+            f"{config.mesh.ranks}")
+    logger.info("initializing driver on %s (n=%d, nz=%d, dt=%gs, %d steps, "
+                "layout %s)", args.device, config.nx_tile, config.nz,
+                config.dt_atmos, config.n_timesteps(),
+                list(config.mesh.layout))
     try:
-        driver.step_all()
+        driver = Driver(config, device=args.device)
+        logger.info("rank %d on %s: stepping %d timesteps", driver.rank,
+                    driver.device, config.n_timesteps())
+        stepped = False
+        try:
+            driver.step_all()
+            stepped = True
+        finally:
+            # flush perf JSON / diagnostics / restart even on a crash, so a
+            # failed run leaves a resumable state behind (reference
+            # driver/pace/driver/run.py:89-92 try/finally cleanup); the
+            # ranks of a failed multi-rank run cannot meet in the gathers
+            if stepped or driver.comm is None:
+                report = driver.cleanup()
+                if report:
+                    logger.info("SYPD: %.4f", report.get("sypd", 0.0))
+            else:
+                logger.error("rank %d: a step failed; nothing is written",
+                             driver.rank)
     finally:
-        # flush perf JSON / diagnostics / restart even on a crash, so a
-        # failed run leaves a resumable state behind (reference
-        # driver/pace/driver/run.py:89-92 try/finally cleanup)
-        report = driver.cleanup()
-        if report:
-            logger.info("SYPD: %.4f", report.get("sypd", 0.0))
+        if dist.is_initialized():
+            dist.destroy_process_group()
     logger.info("done")
     return 0
 

@@ -4,7 +4,9 @@ Port of `pace_tpu.driver.safety_checks` (reference ai2cm/pace
 driver/pace/driver/safety_checks.py `SafetyChecker` / `VariableBounds`):
 registered per-variable bounds, checked against the DycoreState;
 violations raise RuntimeError.  The minima and maxima are reduced on the
-device and read back together, a few scalars, in one transfer.
+device and read back together, a few scalars, in one transfer; over the
+ranks of a multi-rank run (a `comm`, parallel/comm.py) they are reduced by
+one more collective, so every rank checks the whole cube's extrema.
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ class SafetyChecker:
 
     checks: ClassVar[Dict[str, VariableBounds]] = {}
 
-    def __init__(self, sizing=None):
+    def __init__(self, sizing=None, comm=None):
         self.sizing = sizing
+        self.comm = comm
 
     @classmethod
     def register_variable(cls, name: str,
@@ -65,10 +68,16 @@ class SafetyChecker:
             if bounds.compute_domain_only and self.sizing is not None:
                 h, n = self.sizing.halo, self.sizing.n
                 arr = arr[:, h:h + n, h:h + n]
-            extrema[variable] = torch.stack([arr.min(), arr.max()])
-        for variable, (min_val, max_val) in to_host(extrema).items():
+            # (min, -max): both reduce as minima over ranks
+            extrema[variable] = torch.stack([arr.min(), -arr.max()])
+        if self.comm is not None and extrema:
+            names = list(extrema)
+            both = self.comm.all_reduce(
+                torch.stack([extrema[v] for v in names]), "min")
+            extrema = dict(zip(names, both))
+        for variable, (min_val, neg_max) in to_host(extrema).items():
             bounds = self.checks[variable]
-            min_val, max_val = float(min_val), float(max_val)
+            min_val, max_val = float(min_val), -float(neg_max)
             if bounds.minimum_value is not None \
                     and min_val < bounds.minimum_value:
                 raise RuntimeError(

@@ -87,17 +87,19 @@ def _fill_corners_vector_np(x, y, n, h, grid, vector=False):
 # Grid data bundles (tensors)
 # ---------------------------------------------------------------------------
 
-def _tensor_bundle(cls, arrays: dict, device, dtype):
+def _tensor_bundle(cls, arrays: dict, device, dtype, scatter=None):
     """Build a bundle dataclass: array fields become tensors on `device`
-    with `dtype`; scalar fields stay Python numbers."""
+    with `dtype`, cut by `scatter` where given; scalar fields stay Python
+    numbers."""
     kw = {}
     for f in dataclasses.fields(cls):
         v = arrays[f.name]
         if f.type in ("float", "int"):
             kw[f.name] = type(0.0 if f.type == "float" else 0)(v)
         else:
-            kw[f.name] = torch.tensor(np.asarray(v), dtype=dtype,
-                                         device=device)
+            v = np.asarray(v)
+            kw[f.name] = torch.tensor(v if scatter is None else scatter(v),
+                                      dtype=dtype, device=device)
     return cls(**kw)
 
 
@@ -211,12 +213,16 @@ class GridData:
     dtype: torch.dtype
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device, dtype) -> "GridData":
+    def from_numpy(cls, arrays: dict, device, dtype,
+                   scatter=None) -> "GridData":
         """Build from nested numpy leaves {bundle: {field: array or
         scalar}} -- the layout of `pace_tpu`'s GridData, so both packages
-        can be fed identical metrics."""
+        can be fed identical metrics.  With `scatter`
+        (`Partition.scatterer(rank)`) the horizontal bundles hold one rank's
+        part; the scalars (da_min, ...) stay those of the whole cube."""
         kw = {
-            name: _tensor_bundle(bcls, arrays[name], device, dtype)
+            name: _tensor_bundle(bcls, arrays[name], device, dtype,
+                                 None if name == "vertical" else scatter)
             for name, bcls in _BUNDLES
         }
         # the tensors' own device: "cuda" resolves to "cuda:<index>"
@@ -266,9 +272,10 @@ def generate_grid_data(n: int, nz: int, halo: int = N_HALO_DEFAULT, *,
                        device="cuda", dtype=torch.float32,
                        stretch_factor: float = None,
                        lon_target: float = 350.0, lat_target: float = -90.0,
-                       eta_file: str = None) -> GridData:
+                       eta_file: str = None, scatter=None) -> GridData:
     """Generate the full metric-term bundle for a C`n` grid with `nz`
-    levels.
+    levels (one rank's part where `scatter` is given: the metrics are
+    computed for the whole cube on the host and cut).
 
     stretch_factor/lon_target/lat_target apply the Schmidt stretched-grid
     transformation (grid/stretch_transformation.py) to the gnomonic grid
@@ -279,7 +286,7 @@ def generate_grid_data(n: int, nz: int, halo: int = N_HALO_DEFAULT, *,
         grid_arrays_numpy(n, nz, halo, stretch_factor=stretch_factor,
                           lon_target=lon_target, lat_target=lat_target,
                           eta_file=eta_file),
-        device, dtype)
+        device, dtype, scatter)
 
 
 def _generate_metric_terms(

@@ -13,7 +13,7 @@ import torch
 
 from pace_torch.models.coupler.update_dwind_phys import update_dwind_phys
 from pace_torch.ops import c2l_ord
-from pace_torch.ops.stencil_utils import maximum
+from pace_torch.ops.stencil_utils import cumsum_k, maximum
 from pace_torch.utils import constants as con
 
 
@@ -35,7 +35,7 @@ def update_pressure_and_surface_winds(pe, delp, peln, pk, ua, va):
     """Rebuild interface pressures from delp (reference
     fv_update_phys.py:52-76).  Returns (pe, peln, pk, ps, u_srf, v_srf)."""
     pe = torch.cat(
-        [pe[..., :1], pe[..., :1] + torch.cumsum(delp, -1)], -1
+        [pe[..., :1], pe[..., :1] + cumsum_k(delp)], -1
     )
     # clamp: padded columns carry pe=0 which would give log(0) = -inf
     peln_new = torch.log(maximum(pe[..., 1:], 1.0e-10))

@@ -39,10 +39,13 @@ class DynamicalCore:
     grid data."""
 
     def __init__(self, config: DynamicalCoreConfig, sizing: GridSizing,
-                 grid_data, timestep: float, timer=None):
+                 grid_data, timestep: float, timer=None, topology=None):
         """With a `timer` (utils/timing.Timer), each step clocks its
         acoustic substeps, tracer advection and remap as "DynCore",
-        "TracerAdvection" and "Remapping", summed over k_split."""
+        "TracerAdvection" and "Remapping", summed over k_split.  With a
+        `topology` (a `parallel.halo.RankTopology`) the grid data and the
+        state hold one rank's tiles and the halo updates exchange with the
+        other ranks; by default they hold the whole cube."""
         if config.hydrostatic:
             raise NotImplementedError("hydrostatic mode is not implemented")
         if config.consv_te > 0:
@@ -54,7 +57,8 @@ class DynamicalCore:
         self.dtype = grid_data.dtype
         self.timestep = timestep
         self.timer = timer
-        self.topo = get_topology(sizing.n, sizing.halo)
+        self.topo = (topology if topology is not None
+                     else get_topology(sizing.n, sizing.halo))
         self.column_namelist = get_column_namelist(config, sizing.nz)
         # in the grid's dtype, as the reference package computes them
         ak = grid_data.vertical.ak.detach().cpu().numpy()

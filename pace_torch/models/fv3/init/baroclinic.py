@@ -235,8 +235,11 @@ def init_baroclinic_state(
     *,
     device="cuda",
     dtype=torch.float32,
+    scatter=None,
 ):
-    """Build a DycoreState with the J&W baroclinic wave."""
+    """Build a DycoreState with the J&W baroclinic wave (one rank's part
+    where `scatter` is given: the whole cube is built on the host and
+    cut)."""
     from pace_torch.grid import eta as eta_mod
     from pace_torch.grid.generation import _generate_metric_terms
 
@@ -245,4 +248,4 @@ def init_baroclinic_state(
     arrays = init_baroclinic_state_numpy(
         raw, vertical, sizing, adiabatic, hydrostatic, moist_phys
     )
-    return state_mod.DycoreState.from_numpy(arrays, device, dtype)
+    return state_mod.DycoreState.from_numpy(arrays, device, dtype, scatter)

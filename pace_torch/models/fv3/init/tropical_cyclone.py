@@ -233,8 +233,9 @@ def init_tc_state_numpy(raw_metrics: dict, sizing: GridSizing, ak, bk):
 
 
 def init_tc_state(sizing: GridSizing, ak=None, bk=None, *, device="cuda",
-                  dtype=torch.float32) -> state_mod.DycoreState:
-    """Build a DycoreState for the tropical cyclone test case.
+                  dtype=torch.float32, scatter=None) -> state_mod.DycoreState:
+    """Build a DycoreState for the tropical cyclone test case (one rank's
+    part where `scatter` is given).
 
     The analytic column is integrated against whatever ak/bk table is
     provided (like the reference, which accepts any vertical grid): the
@@ -245,4 +246,4 @@ def init_tc_state(sizing: GridSizing, ak=None, bk=None, *, device="cuda",
     ak, bk = tc_coefficients(sizing.nz, ak, bk)
     raw = _generate_metric_terms(sizing.n, sizing.halo)
     arrays = init_tc_state_numpy(raw, sizing, ak, bk)
-    return state_mod.DycoreState.from_numpy(arrays, device, dtype)
+    return state_mod.DycoreState.from_numpy(arrays, device, dtype, scatter)

@@ -3,7 +3,9 @@
 The same 32 fields, metadata and global padded layout (6, N, N[, nz]) as
 `pace_tpu.models.fv3.state` (reference ai2cm/pace
 fv3core/pace/fv3core/initialization/dycore_state.py:11).  Vertical sizes
-are exact: nz for layer quantities, nz+1 for interface quantities.
+are exact: nz for layer quantities, nz+1 for interface quantities.  A rank
+of a multi-rank run holds its own tiles: a leading axis of 6 / t
+(`from_numpy(..., scatter=...)`, parallel/partition.py).
 """
 
 from __future__ import annotations
@@ -73,8 +75,8 @@ NQ = 8
 
 
 def zeros_numpy(sizing) -> Dict[str, np.ndarray]:
-    """float64 zeros for every field, in the padded layout (6, N, N[, nz or
-    nz + 1])."""
+    """float64 zeros for every field, in the padded layout (6, N, N[, nz
+    or nz + 1])."""
     arrays = {}
     for name, (_, dims, _) in FIELD_METADATA.items():
         shape = [6, sizing.N, sizing.N]
@@ -122,12 +124,15 @@ class DycoreState:
     phis: torch.Tensor
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device, dtype) -> "DycoreState":
+    def from_numpy(cls, arrays: dict, device, dtype,
+                   scatter=None) -> "DycoreState":
         """Build from numpy arrays keyed by field name (the layout of
-        `pace_tpu`'s DycoreState leaves), on `device` with `dtype`."""
+        `pace_tpu`'s DycoreState leaves), on `device` with `dtype`; with
+        `scatter` (`Partition.scatterer(rank)`) one rank's part of them."""
+        cut = scatter or (lambda a: a)
         return cls(**{
-            name: torch.tensor(np.asarray(arrays[name]), dtype=dtype,
-                                  device=device)
+            name: torch.tensor(np.asarray(cut(arrays[name])), dtype=dtype,
+                               device=device)
             for name in FIELD_METADATA
         })
 

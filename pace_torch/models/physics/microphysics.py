@@ -29,6 +29,7 @@ import torch
 from pace_torch.models.physics.config import PhysicsConfig
 from pace_torch.ops.stencil_utils import dim as _dim
 from pace_torch.ops.stencil_utils import (
+    cumsum_k,
     levels,
     maximum,
     minimum,
@@ -162,7 +163,7 @@ def _implicit_fall(q, dp1, dz_pos, vt, dt):
         dd_prev = dd_k
         qm.append(qm_prev)
     qm = torch.stack(qm, -1) * dz_pos
-    m1 = torch.cumsum(qdp - qm, dim=-1)
+    m1 = cumsum_k(qdp - qm)
     return qm / dp1, m1, m1[..., -1]
 
 

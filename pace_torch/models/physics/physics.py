@@ -25,7 +25,12 @@ from pace_torch.models.physics.microphysics import (
     MicrophysicsState,
 )
 from pace_torch.models.physics.physics_state import PhysicsState
-from pace_torch.ops.stencil_utils import maximum, minimum, reverse_cumsum
+from pace_torch.ops.stencil_utils import (
+    cumsum_k,
+    maximum,
+    minimum,
+    reverse_cumsum,
+)
 from pace_torch.utils import constants as con
 
 P00 = 1.0e5
@@ -57,7 +62,7 @@ def atmos_phys_driver_statein(state: PhysicsState, ptop, pktop, pk0inv,
     # interface pressures from the stripped masses
     prsi = torch.cat(
         [torch.full_like(delp[..., :1], ptop),
-         ptop + torch.cumsum(delp, -1)], -1,
+         ptop + cumsum_k(delp)], -1,
     )
     qv, ql, qr, qi, qs, qg, qo3 = (
         x / delp for x in (qv, ql, qr, qi, qs, qg, qo3)

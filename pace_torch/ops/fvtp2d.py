@@ -57,10 +57,10 @@ def transport_batched_plain(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf,
                             dxa, dya, area, n: int, h: int, hord: int):
     """Plain torch version of the batched transport.
 
-    q_y/q_x: (T, 6, N, N, nz) corner-copied stacks (copy_corners(q, "y")
-    and copy_corners(copy_corners(q, "y"), "x")); crx/cry/xfx/yfx/xmf/ymf:
-    (6, N, N, nz); dxa/dya/area: (6, N, N).  Returns (fx, fy), each
-    (T, 6, N, N, nz)."""
+    q_y/q_x: (T, tiles, N, N, nz) corner-copied stacks (copy_corners(q,
+    "y") and copy_corners(copy_corners(q, "y"), "x")), any tile count;
+    crx/cry/xfx/yfx/xmf/ymf: (tiles, N, N, nz); dxa/dya/area: (tiles, N,
+    N).  Returns (fx, fy), each (T, tiles, N, N, nz)."""
     dxa, dya, area = dxa[..., None], dya[..., None], area[..., None]
     out = [
         _fluxes_one(q_y[t], q_x[t], crx, cry, xfx, yfx, xmf, ymf, dxa, dya,
@@ -78,18 +78,19 @@ def transport_batched_cuda(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf,
     global LAUNCHES
     from pace_torch.ops import _cuda
 
-    T, six, N, N2, nz = q_y.shape
+    T, tiles, N, N2, nz = q_y.shape
     shared = (crx, cry, xfx, yfx, xmf, ymf)
-    _cuda.check(q_y, q_x, shape=(T, six, N, N2, nz))
-    _cuda.check(*shared, shape=(six, N, N2, nz), dtype=q_y.dtype)
-    _cuda.check(dxa, dya, area, shape=(six, N, N2), dtype=q_y.dtype)
-    if six != 6 or N != N2 or not (h + n + 2 <= N):
+    _cuda.check(q_y, q_x, shape=(T, tiles, N, N2, nz))
+    _cuda.check(*shared, shape=(tiles, N, N2, nz), dtype=q_y.dtype)
+    _cuda.check(dxa, dya, area, shape=(tiles, N, N2), dtype=q_y.dtype)
+    # a rank of a (t, 1, 1) layout holds 6 / t whole tiles
+    if tiles not in (1, 2, 3, 6) or N != N2 or not (h + n + 2 <= N):
         raise ValueError(f"unsupported transport shape {tuple(q_y.shape)}")
     fx, fy = torch.empty_like(q_y), torch.empty_like(q_y)
     _cuda.launch(
         "fvtp2d", q_y.dtype,
         q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area, fx, fy,
-        ints=(T, N, nz, n, h, hord),
+        ints=(T, tiles, N, nz, n, h, hord),
     )
     LAUNCHES += 1
     return fx, fy

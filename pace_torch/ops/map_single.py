@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from pace_torch.ops.remap_profile import remap_profile
+from pace_torch.ops.stencil_utils import cumsum_k
 
 
 def _source_layer(pe1, pe2):
@@ -40,9 +41,9 @@ def lagrangian_contributions_spaces(space_groups):
     for pe1, pe2, q4_1, q4_2, q4_3, q4_4, dp1 in space_groups:
         integ = dp1 * (q4_2 + 0.5 * (q4_3 - q4_2 + q4_4) - q4_4 / 3.0)
         z = torch.zeros_like(integ[..., :1])
-        c_hi = torch.cat([z, torch.cumsum(integ, -1)], -1)
+        c_hi = torch.cat([z, cumsum_k(integ)], -1)
         err = (c_hi[..., 1:] - c_hi[..., :-1]) - integ
-        c_lo = -torch.cat([z, torch.cumsum(err, -1)], -1)
+        c_lo = -torch.cat([z, cumsum_k(err)], -1)
 
         def at_j(x):
             idx = j.expand(x.shape[:-1] + j.shape[-1:])

@@ -18,6 +18,7 @@ import math
 import torch
 
 from pace_torch.ops import bounds
+from pace_torch.ops.stencil_utils import cumsum_k, reverse_cumsum
 from pace_torch.utils import constants
 
 # Launches of the CUDA SIM1 kernel; read and reset by chip_smoke.py.
@@ -148,12 +149,12 @@ def sim1_solver(w, dm, gm, dz, pt, pm, pem, ws, dt, p_fac):
 def interfaces(top: float, layers: torch.Tensor) -> torch.Tensor:
     """[top, top + cumsum(layers)] along k."""
     return torch.cat([torch.full_like(layers[..., :1], top),
-                      top + torch.cumsum(layers, -1)], -1)
+                      top + cumsum_k(layers)], -1)
 
 
 def column_from_surface(surface, dz, scale=None):
     """Interface heights [surface - sum_{m>=k} dz_m (*scale), surface]."""
-    below = torch.flip(torch.cumsum(torch.flip(dz, (-1,)), -1), (-1,))
+    below = reverse_cumsum(dz)
     if scale is not None:
         below = below * scale
     return torch.cat([surface[..., None] - below, surface[..., None]], -1)

@@ -5,10 +5,10 @@ fv3core/pace/fv3core/stencils/tracer_2d_1l.py `TracerAdvection`).  By
 default the Courant bound is the reference's fixed cmax = 2.0, i.e. exactly
 3 substeps.  `dynamic_subcycle=True` takes the Fortran model's
 data-dependent split instead: floor(1 + max |Courant|) substeps, the
-maximum taken over the compute domain and read to the host once per call
-(a synchronisation, so it stays off the default path).  The tracers stay
-stacked (T, 6, N, N, nz) through all substeps, so each substep is one
-batched transport call.
+maximum taken over the compute domain (of every rank: `topo.reduce_max`)
+and read to the host once per call (a synchronisation, so it stays off the
+default path).  The tracers stay stacked (T, tiles, N, N, nz) through all
+substeps, so each substep is one batched transport call.
 """
 
 from __future__ import annotations
@@ -19,21 +19,24 @@ import torch
 
 from pace_torch.ops.fvtp2d import transport_batched
 from pace_torch.ops.stencil_utils import shift
+from pace_torch.parallel import halo as halo_mod
 
 
 def _shift_stack(q, di: int = 0, dj: int = 0):
-    """shift() for tracer stacks (T, 6, N, N, nz): i, j are axes 2, 3."""
+    """shift() for tracer stacks (T, tiles, N, N, nz): i, j are axes 2, 3."""
     return shift(q.movedim(0, -1), di, dj).movedim(-1, 0)
 
 
-def subcycle_count(x_courant, y_courant, n: int, h: int) -> int:
+def subcycle_count(x_courant, y_courant, n: int, h: int, topo=None) -> int:
     """The dynamic subcycle's trip count, max(floor(1 + max |C|), 1), the
-    maximum over the compute domain (the halo padding may hold NaN).  One
-    host read."""
+    maximum over the compute domain (the halo padding may hold NaN) and,
+    with a rank topology, over the ranks.  One host read."""
     cmax = torch.maximum(
         x_courant[:, h:h + n + 1, h:h + n].abs().max(),
         y_courant[:, h:h + n, h:h + n + 1].abs().max(),
     )
+    if topo is not None:
+        cmax = topo.reduce_max(cmax)
     return max(int(torch.floor(1.0 + cmax).item()), 1)
 
 
@@ -41,7 +44,8 @@ def tracer_advection(
     tracers: dict, dp1, x_mass_flux, y_mass_flux, x_courant, y_courant,
     gd, topo, n, h, hord_tr, dynamic_subcycle: bool = False,
 ):
-    """Advect tracers (dict of (6,N,N,nz) tensors). Returns updated dict."""
+    """Advect tracers (dict of (tiles, N, N, nz) tensors). Returns updated
+    dict."""
     hz, ang = gd.horizontal, gd.angle
     dxa = hz.dxa[..., None]
     dya = hz.dya[..., None]
@@ -65,7 +69,7 @@ def tracer_advection(
     )
 
     if dynamic_subcycle:
-        n_split = subcycle_count(x_courant, y_courant, n, h)
+        n_split = subcycle_count(x_courant, y_courant, n, h, topo)
     else:
         n_split = math.floor(1.0 + 2.0)
     frac = 1.0 / n_split
@@ -78,18 +82,16 @@ def tracer_advection(
 
     names = list(tracers.keys())
     stacked = torch.stack([tracers[name] for name in names])
-    # halo exchange composed with the transport's corner copies: q_y is the
-    # halo-updated field with its y-corner copy, q_x adds the x-corner copy
-    spec_y, spec_x = topo.scalar_corner_specs()
-    ty, tx = spec_y.on(stacked.device), spec_x.on(stacked.device)
 
     for it in range(n_split):
         dp2 = dp1 + (
             x_mass_flux - shift(x_mass_flux, 1)
             + y_mass_flux - shift(y_mass_flux, 0, 1)
         ) * rarea
-        qy = stacked[:, ty["t"], ty["i"], ty["j"]].contiguous()
-        qx = stacked[:, tx["t"], tx["i"], tx["j"]].contiguous()
+        # halo exchange composed with the transport's corner copies: q_y is
+        # the halo-updated field with its y-corner copy, q_x adds the
+        # x-corner copy
+        qy, qx = halo_mod.halo_update_corners(topo, stacked)
         fx, fy = transport_batched(
             qy, qx, x_courant, y_courant, xfx, yfx, x_mass_flux,
             y_mass_flux, hz.dxa, hz.dya, hz.area, n, h, hord_tr,

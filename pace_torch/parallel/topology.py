@@ -314,6 +314,10 @@ class CubedSphereTopology:
             self._specs[key] = self._build_vector(u_stagger, v_stagger)
         return self._specs[key]
 
+    def reduce_max(self, value: torch.Tensor) -> torch.Tensor:
+        """The maximum over every rank: one rank holds the whole cube."""
+        return value
+
     # -- construction -------------------------------------------------------
     def _point_coords(self, stagger: str):
         """Continuous local coordinates (x, y) of every storage point, plus

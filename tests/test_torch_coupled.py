@@ -291,11 +291,11 @@ def test_from_dict_requires_its_keys():
         "multihost", "stretch", "eta_file", "lon_target", "tropicalcyclone",
         "restart_init", "fortran_restart"])
 def test_from_dict_refuses_an_unported_section(patch):
-    """The port refuses what it does not run, naming the ROADMAP item: a
-    mesh of more than one device when the Driver is built (item 11; the
-    configuration itself hydrates).  Every other section here, refused
-    before it was ported (the Fortran restart start until item 10 ported
-    it), hydrates as in the reference package."""
+    """Every section here, refused before it was ported (the Fortran
+    restart start until item 10 ported it, a mesh of more than one device
+    until item 11 did), hydrates as in the reference package.  A mesh of
+    more than one rank runs under torchrun (or with a coordinator): the
+    Driver built in a lone process says so."""
     from pace_torch.driver import DriverConfig
     from pace_tpu.driver.driver import DriverConfig as RefDriverConfig
 
@@ -304,8 +304,7 @@ def test_from_dict_refuses_an_unported_section(patch):
     assert dataclasses.asdict(config) == dataclasses.asdict(
         RefDriverConfig.from_dict(kwargs))
     if "mesh" in patch:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 11"):
+        with pytest.raises(RuntimeError, match="torchrun"):
             Driver(config, device="cpu")
 
 

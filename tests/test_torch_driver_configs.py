@@ -1,8 +1,9 @@
 """Every example configuration hydrates in the port exactly as in the
 reference package: `DriverConfig.from_yaml` of each file in
 examples/configs/, as a nested dict, equals `pace_tpu`'s field by field.
-A mesh of more than one device hydrates and raises only when the `Driver`
-is built, naming its ROADMAP item."""
+A mesh that splits tiles along x or y (`c384_multihost_emulator.yaml`'s
+[6, 4, 4]) hydrates and raises only when the `Driver` is built, naming its
+ROADMAP item, 11b."""
 
 import dataclasses
 import glob
@@ -57,7 +58,7 @@ def test_multi_device_mesh_raises_at_the_driver_not_at_hydration():
     config = DriverConfig.from_yaml(path)
     assert config.mesh.layout == (6, 4, 4)
     assert config.mesh.dcn_mesh_shape == (6, 1, 1)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11b"):
         Driver(config, device="cpu")
 
 

@@ -132,3 +132,39 @@ def test_fillz_kernel_unaligned_columns(cuda, dtype):
         assert torch.equal(got, fillz.fix_tracers_cuda(q, dp))
         bar = 1e-12 if dtype == torch.float64 else 1e-5
         assert _err([got], [plain]) <= bar
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tiles", [1, 3])
+def test_transport_kernel_at_a_ranks_tiles(cuda, dtype, tiles):
+    """K-T on the tiles of a rank of a (6, 1, 1) or (2, 1, 1) layout."""
+    from pace_torch.ops import fvtp2d
+
+    arrays = transport_inputs(N_, 79, 3)
+    args = [torch.as_tensor(
+        np.ascontiguousarray(arrays[k][:, :tiles] if k in ("q_y", "q_x")
+                             else arrays[k][:tiles]),
+        dtype=dtype, device=cuda) for k in TRANSPORT_KEYS]
+    want = fvtp2d.transport_batched_plain(*args, N_, H, 8)
+    got = fvtp2d.transport_batched_cuda(*args, N_, H, 8)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= (1e-12 if dtype == torch.float64 else 1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cumulative_sums_do_not_depend_on_the_size(cuda, dtype):
+    """stencil_utils.cumsum_k gives one C192 tile's rows, and 64 of them,
+    the sums they get in the six-tile tensor (torch.cumsum along the last
+    axis does not: its threads a row change with the row count), and in
+    float64 the CPU's sums."""
+    from pace_torch.ops.stencil_utils import cumsum_k
+
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn(6, 200, 200, 79, generator=g, dtype=dtype).to(cuda)
+    whole = cumsum_k(q)
+    assert torch.equal(whole[0:1], cumsum_k(q[0:1].contiguous()))
+    assert torch.equal(whole[3:6], cumsum_k(q[3:6].contiguous()))
+    assert torch.equal(whole[2:3, :8, :8],
+                       cumsum_k(q[2:3, :8, :8].contiguous()))
+    if dtype == torch.float64:
+        assert torch.equal(whole.cpu(), torch.cumsum(q.cpu(), -1))

@@ -4,9 +4,11 @@ packages and the driver's I/O among them), builds the C12 grid and initial
 state, runs one dycore step, and one coupled step through the yaml entry
 point `python -m pace_torch.driver.run` with NetCDF diagnostics and
 restart, on the CPU; nothing of the reference package is imported on the
-way.  And the port's entry points
+way (the ranks of tests/test_torch_sharded_step.py, and of its slow
+torchrun run, check the same).  And the port's entry points
 run on the card unless the caller asks for the CPU: read from their
-signatures, and tried where there is no card."""
+signatures, and tried where there is no card; a rank under torchrun asks
+for its own card."""
 
 import inspect
 import os
@@ -51,7 +53,8 @@ for name in ("ops.saturation_adjustment", "ops.fv_subgridz",
              "utils.nudging", "utils.monitor", "utils.translate",
              "utils.translate_cases", "utils.translate_cases_grid",
              "utils.translate_cases_physics", "driver.tools", "ops.bounds",
-             "_native.fastpack"):
+             "_native.fastpack", "parallel.partition", "parallel.comm",
+             "parallel.halo", "parallel.traffic", "utils.pair_debug"):
     assert "pace_torch." + name in walked, name
 from pace_torch.grid.generation import generate_grid_data
 from pace_torch.models.fv3.config import DynamicalCoreConfig
@@ -183,6 +186,43 @@ def test_the_nine_day_run_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="stop before"):
         jw_baroclinic_wave.main([])
     assert asked == [(9, "cuda")]
+
+
+def test_a_rank_of_a_layout_runs_on_its_own_card(monkeypatch):
+    """Under torchrun (RANK, LOCAL_RANK, WORLD_SIZE in the environment) a
+    Driver of layout (2, 1, 1) asks for cuda:LOCAL_RANK by default, with
+    NCCL where each rank has a card and gloo with host staging where the
+    ranks share one, and refuses nothing before it reaches the card;
+    `python -m pace_torch.driver.run` refuses a process count other than
+    the layout's."""
+    from pace_torch.driver import Driver
+    from pace_torch.driver.run import main
+    from pace_torch.parallel import comm as comm_mod
+
+    for name, value in (("RANK", "1"), ("LOCAL_RANK", "1"),
+                        ("WORLD_SIZE", "2"), ("LOCAL_WORLD_SIZE", "2")):
+        monkeypatch.setenv(name, value)
+    asked = []
+
+    def stand_in(device, *args):
+        asked.append(torch.device(device))
+        raise RuntimeError("stop at the process group")
+
+    monkeypatch.setattr(comm_mod, "init_process_group", stand_in)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert comm_mod.backend_for("cuda:1") == "nccl"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert comm_mod.rank_device("cuda") == torch.device("cuda:0")
+    assert comm_mod.backend_for("cuda:0") == "gloo"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    config = dict(nx_tile=12, nz=79, dt_atmos=225,
+                  initialization={"type": "baroclinic"},
+                  mesh={"layout": [2, 1, 1]})
+    with pytest.raises(RuntimeError, match="stop at the process group"):
+        Driver.from_dict(config)
+    assert asked == [torch.device("cuda:1")]
+    with pytest.raises(ValueError, match="nproc_per_node 1"):
+        main([str(REPO / "examples" / "configs" / "baroclinic_c12.yaml")])
 
 
 def test_entry_points_raise_without_a_card():

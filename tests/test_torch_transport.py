@@ -84,8 +84,10 @@ def test_port_metrics_match_reference(inputs, jax_grid):
 @pytest.mark.parametrize("hord", HORDS)
 def test_kernel_wrapper_takes_every_order(inputs, monkeypatch, hord):
     """The CUDA wrapper launches the kernel at every PPM order the plain
-    version computes, and still refuses a bad shape before it launches.
-    The launch itself is recorded instead of made (no card here)."""
+    version computes, with the tile count of its inputs (6, or the 1, 2
+    or 3 tiles of a rank), and still refuses a bad shape before it
+    launches.  The launch itself is recorded instead of made (no card
+    here)."""
     from pace_torch.ops import _cuda
 
     launched = []
@@ -97,8 +99,19 @@ def test_kernel_wrapper_takes_every_order(inputs, monkeypatch, hord):
     fx, fy = port_fvtp2d.transport_batched_cuda(*args, N_, H, hord)
     assert fx.shape == fy.shape == args[0].shape
     N = args[0].shape[2]
-    assert launched == [("fvtp2d", 13, (T, N, NZ, N_, H, hord))]
+    assert launched == [("fvtp2d", 13, (T, 6, N, NZ, N_, H, hord))]
     with pytest.raises(ValueError):
         port_fvtp2d.transport_batched_cuda(args[0][:, :, 1:].contiguous(),
                                            *args[1:], N_, H, hord)
     assert len(launched) == 1
+
+    def tiles(a, k):
+        return (a[:, :k] if a.shape[0] == T else a[:k]).contiguous()
+
+    port_fvtp2d.transport_batched_cuda(*(tiles(a, 3) for a in args), N_, H,
+                                       hord)
+    assert launched[-1] == ("fvtp2d", 13, (T, 3, N, NZ, N_, H, hord))
+    with pytest.raises(ValueError):
+        port_fvtp2d.transport_batched_cuda(*(tiles(a, 4) for a in args),
+                                           N_, H, hord)
+    assert len(launched) == 2
