@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (pace_torch) on one NVIDIA GPU.
 
 Run from the root of a checkout with no arguments:  python3 chip_smoke.py
+(`python3 chip_smoke.py --phases 2,15` runs phases 0 and 1 and those
+named, and prints no result lines.)
 
 Phases (any failure raises and exits non-zero; nothing falls back):
   0. device and toolchain report;
@@ -12,7 +14,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      non-finite dp or q planted in columns without negatives), float64
      and float32, with CUDA-event timings and each kernel's bound; then
      K-T (T=8 hord 8, T=1 hord 6), K-S and K-F at the tile counts of a
-     rank, 1 and 3 tiles of the same inputs;
+     rank, 1 and 3 tiles of the same inputs, and on the blocks of ranks
+     that split tiles: rank 0 of (1, 2, 4) (six tiles of 31 x 19 points)
+     and of (6, 4, 4) (a tile's corner, 19 x 19), K-T in float64 exactly
+     equal to its plain version;
   3. the C12/79 dycore step on the card against the committed digests of
      the reference package (float64 step 1, float32 steps 1-2);
   4. the main path, C48/79 float32, k_split=1, n_split=2, dt=450 s:
@@ -49,9 +54,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      c48_sections_perf.yaml with a step-3 restart that a second run
      continues to the same final state bit for bit,
      c96_baroclinic_shield.yaml, tropical_cyclone_c48.yaml cut to 4 steps
-     (vortex checks), and c384_multihost_emulator.yaml, whose 96-device
-     mesh the Driver refuses; each run's diagnostics, perf JSON, restart,
-     safety checks and exact launch counts;
+     (vortex checks); each run's diagnostics, perf JSON, restart,
+     safety checks and exact launch counts; and c384_multihost_emulator.
+     yaml's [6, 4, 4] mesh built at n = 384 without a process group: its
+     96 boxes and rank 0's exchange plans, rows received per halo kind and
+     bytes a step (the halo calls of the yaml's step, recorded at C12);
   10. the dycore branches kord 8, kord 10, do_skeb and the dynamic tracer
      subcycle: each as one C12/79 float64 step on the card against the same
      step on the CPU (every field within 1e-9 of its scale; for kord 10,
@@ -91,7 +98,19 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      c48_sections_perf.yaml at layout [6, 1, 1] through `torchrun -m
      pace_torch.driver.run`, its restarts and diagnostics against phase
      9's one-rank run; one C12 tile stepped alone from a halo-traffic
-     recording.
+     recording;
+  15. ranks that split tiles along x and y, eight on the one card through
+     torchrun (`chip_smoke.py --split-ranks DIR` is one rank), gloo with
+     pinned-host staging: two C12/79 float64 steps under pair_debug
+     against the one-rank card step at (1, 2, 2), (2, 2, 2) and (1, 2, 4);
+     phase 8's coupled emulator step (the settings of
+     c384_multihost_emulator.yaml at C96/79 float32) at (2, 2, 2), one
+     warm-up and two timed steps, the gathered state against one process
+     (launches, exchanges, bytes and exchange ms, memory and ms/step of
+     each rank); then c384_multihost_emulator.yaml cut to nx_tile 24,
+     layout [6, 2, 2], multihost false and 2 steps through `torchrun -m
+     pace_torch.driver.run` (24 ranks), its files against the one-rank run
+     of the same cut yaml.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -170,6 +189,7 @@ def max_rel(got, ref, region=...) -> tuple:
 # over the float32 rate) and the kernels' names live in the package, where
 # `python -m pace_torch.driver.tools cost` reads them too.
 from pace_torch.ops.bounds import KERNELS, bound  # noqa: E402
+from pace_torch.utils.gridtools import Domain  # noqa: E402
 
 
 def transport_bound(args):
@@ -192,7 +212,7 @@ def check_transport(results):
         arrays = transport_inputs(48, nz, T)
         for dtype in (torch.float64, torch.float32):
             args = on([arrays[k] for k in TRANSPORT_KEYS], dtype)
-            call = (*args, 48, 3, hord)
+            call = (*args, Domain.whole(48, 3), hord)
             plain = fvtp2d.transport_batched_plain(*call)
             kern = fvtp2d.transport_batched_cuda(*call)
             torch.cuda.synchronize()
@@ -331,9 +351,9 @@ def check_rank_shapes():
             cases.append((
                 f"K-T T={T} hord {hord}", t1 - t0, arrays, "K-T",
                 lambda *a, hord=hord: fvtp2d.transport_batched_plain(
-                    *a, 48, 3, hord),
+                    *a, Domain.whole(48, 3), hord),
                 lambda *a, hord=hord: fvtp2d.transport_batched_cuda(
-                    *a, 48, 3, hord),
+                    *a, Domain.whole(48, 3), hord),
                 (slice(None),) * 2 + (slice(3, 52),) * 2))
     dt, p_fac = 225.0, 0.05
     full = sim1_inputs(56, 56, 79)
@@ -371,6 +391,77 @@ def check_rank_shapes():
             if not rel <= bar:
                 raise AssertionError(f"{label} at {tiles} tiles {dtype}: "
                                      f"rel err {rel}")
+
+
+def check_split_shapes():
+    """The kernels on the block a rank of an x/y layout holds, C48 inputs
+    cut to it, against their plain versions on the same block: K-T (T=8
+    hord 8 and T=1 hord 6) on rank 0 of (1, 2, 4) (six tiles of 31 x 19
+    points, tile edges on its west and south sides) and on rank 0 of
+    (6, 4, 4) (one tile's corner block of 19 x 19 points); K-S and K-F on
+    the (1, 2, 4) block.  K-T in float64 exactly equal."""
+    from pace_torch.ops import fillz, fvtp2d, riemann
+    from pace_torch.parallel.partition import Partition
+    from pace_torch.testing import (
+        TRANSPORT_KEYS,
+        fillz_inputs,
+        sim1_inputs,
+        transport_inputs,
+    )
+
+    cases = []
+    full = {T: transport_inputs(48, 79, T) for T in (8, 1)}
+    for layout in ((1, 2, 4), (6, 4, 4)):
+        partition = Partition(layout, 48)
+        dom, box = partition.domain(0), partition.local_box(0)
+        shape = f"{layout} rank 0, ({box.shape[0]},{dom.Ni},{dom.Nj})"
+        for T, hord in ((8, 8), (1, 6)):
+            arrays = [np.ascontiguousarray(
+                full[T][k][(slice(None),) + box.index]
+                if k in ("q_y", "q_x") else full[T][k][box.index])
+                for k in TRANSPORT_KEYS]
+            cases.append((
+                f"K-T T={T} hord {hord} {shape}", arrays, "K-T",
+                lambda *a, hord=hord, dom=dom:
+                    fvtp2d.transport_batched_plain(*a, dom, hord),
+                lambda *a, hord=hord, dom=dom:
+                    fvtp2d.transport_batched_cuda(*a, dom, hord)))
+    dom = Partition((1, 2, 4), 48).domain(0)
+    dt, p_fac = 225.0, 0.05
+    cases.append((f"K-S (6,{dom.Ni},{dom.Nj},79)",
+                   list(sim1_inputs(dom.Ni, dom.Nj, 79)), "K-S",
+                   lambda *a: riemann.sim1_solver_plain(*a, dt, p_fac),
+                   lambda *a: riemann.sim1_solver_cuda(*a, dt, p_fac)))
+    cases.append((f"K-F neg_frac 0.3 (9,6,{dom.Ni},{dom.Nj},79)",
+                   list(fillz_inputs(9, dom.Ni, dom.Nj, 79)), "K-F",
+                   lambda q, dp: [torch.stack([fillz.fix_tracer_plain(x, dp)
+                                               for x in q])],
+                   lambda q, dp: [fillz.fix_tracers_cuda(q, dp)]))
+    for label, arrays, key, plain_fn, kern_fn in cases:
+        for dtype in (torch.float64, torch.float32):
+            args = on(arrays, dtype)
+            plain, kern = plain_fn(*args), kern_fn(*args)
+            torch.cuda.synchronize()
+            err, rel = max_rel(kern, plain)
+            exact = key == "K-T" and dtype == torch.float64
+            bar = 1e-12 if dtype == torch.float64 else 1e-5
+            ok = err == 0.0 if exact else rel <= bar
+            text = ""
+            if dtype == torch.float32:
+                ms = cuda_ms(lambda: kern_fn(*args))
+                plain_ms = cuda_ms(lambda: plain_fn(*args), warmup=1,
+                                   repeats=3)
+                bound_ms, bound_by = bound(key, args, kern, args[0].numel())
+                text = (f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+                        f"bound={bound_ms:.4f} ms ({bound_by}) "
+                        f"share={bound_ms / ms:.3f} ")
+            log(f"[2] split block {label} {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3e} rel={rel:.3e} "
+                f"(bar {'exactly 0' if exact else f'{bar:g}'}) " + text
+                + ("ok" if ok else "FAIL"))
+            if not ok:
+                raise AssertionError(f"split block {label} {dtype}: err "
+                                     f"{err} rel {rel}")
 
 
 # ---------------------------------------------------------------------------
@@ -753,29 +844,48 @@ def check_card_against_cpu():
                                  f"{errs[worst]}")
 
 
-def run_emulator(card) -> None:
-    """Phase 8."""
-    from pace_torch.driver import Driver
+EMULATOR_HIDDEN = (256, 256, 256)
+EMULATOR_WEIGHTS = os.path.join(REPO, "build", "chip_smoke_emulator.npz")
+
+
+def write_emulator_weights() -> str:
+    """Seeded He weights of the MLP emulator, the output layer (zero when
+    drawn) made small and non-zero so that the network does work, saved
+    to EMULATOR_WEIGHTS."""
     from pace_torch.models.physics import emulator
 
-    hidden = (256, 256, 256)
-    # seeded He weights; the output layer, zero when drawn, made small and
-    # non-zero so that the network does work
+    hidden = EMULATOR_HIDDEN
     params = emulator._init_params(
         emulator.MLPEmulatorConfig(hidden_sizes=hidden, seed=11), 79)
     generator = torch.Generator().manual_seed(12)
     last = f"w{len(hidden)}"
     params[last] = 0.05 * torch.randn(params[last].shape,
                                       generator=generator)
-    path = os.path.join(REPO, "build", "chip_smoke_emulator.npz")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    emulator.save_params(params, path)
+    os.makedirs(os.path.dirname(EMULATOR_WEIGHTS), exist_ok=True)
+    emulator.save_params(params, EMULATOR_WEIGHTS)
+    return EMULATOR_WEIGHTS
 
-    t0 = time.perf_counter()
-    driver = Driver.from_dict(driver_config(
+
+def emulator_driver_config(**extra) -> dict:
+    """Phase 8's coupled step: the dycore settings of
+    c384_multihost_emulator.yaml at C96/79 float32, dt 150 s, with the
+    emulator's seeded weights (write_emulator_weights)."""
+    return dict(driver_config(
         96, "float32", 150.0, dict(do_sat_adj=True, **SHIELD),
         dict(dt_atmos=150, mp_time=150, microphysics_scheme="emulator",
-             emulator=dict(hidden_sizes=list(hidden), weights_path=path))))
+             emulator=dict(hidden_sizes=list(EMULATOR_HIDDEN),
+                           weights_path=EMULATOR_WEIGHTS))), **extra)
+
+
+def run_emulator(card) -> None:
+    """Phase 8."""
+    from pace_torch.driver import Driver
+    from pace_torch.models.physics import emulator
+
+    hidden = EMULATOR_HIDDEN
+    write_emulator_weights()
+    t0 = time.perf_counter()
+    driver = Driver.from_dict(emulator_driver_config())
     sizing = driver.state.sizing
     torch.cuda.synchronize()
     log(f"[8] Driver C96/79 float32 dt=150 k_split=2 n_split=3 hord 8 "
@@ -1156,23 +1266,77 @@ def run_yaml_configs(card) -> dict:
         check_yaml_run(path, on_card(path), card)
         check_tc_vortex(path)
 
-        # c384_multihost_emulator.yaml hydrates; the Driver refuses its mesh
-        path = os.path.join(EXAMPLES, "c384_multihost_emulator.yaml")
-        config = DriverConfig.from_yaml(path)
-        try:
-            Driver(config)
-        except NotImplementedError as err:
-            text = str(err)
-        else:
-            raise AssertionError("c384: the Driver accepted a 96-device mesh")
-        ok = "item 11b" in text
-        log(f"[9] c384_multihost_emulator.yaml hydrates (mesh layout "
-            f"{list(config.mesh.layout)}); Driver raises NotImplementedError:"
-            f" {text} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"c384: {text}")
+        # c384_multihost_emulator.yaml: its 96-rank mesh
+        report_c384_mesh(os.path.join(tmp, "c384_halo"))
 
     return total
+
+
+def report_c384_mesh(work) -> None:
+    """c384_multihost_emulator.yaml hydrates, and its [6, 4, 4] mesh (hosts
+    [6, 1, 1]) builds at n = 384 without a process group: the ranks' box
+    sizes and rank 0's exchange plans, rows received per halo kind, and
+    the bytes rank 0 receives a step.  A step's halo calls are those of
+    the yaml's own step, recorded on one process at C12 (`Driver.step()`
+    of the yaml with nx_tile 12 and one rank), each call's bytes the
+    plan's rows times the call's values a point at 4 bytes (float32)."""
+    from pace_torch.driver import Driver, DriverConfig
+    from pace_torch.parallel.halo import RankTopology
+    from pace_torch.parallel.partition import Partition
+    from pace_torch.parallel.traffic import HaloTrafficRecorder
+
+    path = os.path.join(EXAMPLES, "c384_multihost_emulator.yaml")
+    config = DriverConfig.from_yaml(path)
+    t0 = time.perf_counter()
+    partition = Partition(config.mesh.layout, config.nx_tile,
+                          dcn_mesh_shape=config.mesh.dcn_mesh_shape)
+    sizes = set()
+    for rank in range(partition.size):
+        si, sj = partition.domain(rank).compute()
+        sizes.add((si.stop - si.start, sj.stop - sj.start))
+    if partition.size != 96 or sizes != {(96, 96)}:
+        raise AssertionError(f"c384 mesh: {partition.size} ranks, boxes "
+                             f"{sizes}")
+    topo = RankTopology(partition, 0, None)
+    # the halo calls of one step of the yaml, recorded at C12 on one rank
+    small = yaml_copy("c384_multihost_emulator.yaml", work, nx_tile=12,
+                      mesh=dict(layout=[1, 1, 1]))
+    driver = Driver(DriverConfig.from_yaml(small))
+    recorder = HaloTrafficRecorder.recording()
+    with recorder:
+        driver.step()
+    plans = {}
+    received = 0
+    N = 12 + 6 + 6  # the C12 storage extent
+    for kind, lead, result in recorder.calls:
+        head, rest = kind.split(":", 1)
+        if head in ("vector1", "ifsync1") or kind.endswith("+corner_x"):
+            continue  # the second output of a call counted with the first
+        if head == "scalar":
+            plan = (topo.scalar_corner_specs()
+                    if rest.startswith("center+corner")
+                    else topo.scalar_spec(rest))
+        elif head == "vector0":
+            plan = topo.vector_spec(*rest.split(":"))
+        else:
+            plan = topo.interface_sync_map(*rest.split(":"))
+        width = result.size // (6 * N * N)
+        entry = plans.setdefault(plan.kind, [plan.recv_rows, 0, 0])
+        entry[1] += 1
+        entry[2] += plan.recv_rows * width * 4
+        received += plan.recv_rows * width * 4
+    log(f"[9] c384_multihost_emulator.yaml hydrates; its mesh "
+        f"{list(config.mesh.layout)} (hosts "
+        f"{list(config.mesh.dcn_mesh_shape)}) builds at n=384 without a "
+        f"process group: {partition.size} ranks, every box "
+        f"{sizes.pop()} compute cells, rank 0 holds "
+        f"{partition.local_box(0).shape} points")
+    for kind, (rows, calls, nbytes) in sorted(plans.items()):
+        log(f"[9] c384 rank 0 plan {kind}: {rows} rows received a call, "
+            f"{calls} calls a step, {nbytes / 1e6:.3f} MB a step")
+    log(f"[9] c384 rank 0 receives {received / 1e6:.3f} MB a step in "
+        f"{sum(c for _, c, _ in plans.values())} exchanges (float32; "
+        f"{time.perf_counter() - t0:.1f} s)")
 
 # ---------------------------------------------------------------------------
 # phase 10: the dycore branches
@@ -1737,10 +1901,10 @@ def _rank_log(rank, msg):
         log(f"[14] {msg}")
 
 
-def rank_pair_debug(comm, device):
-    """14.1: two C12/79 float64 steps under pair_debug, the one-rank step on
-    the card (replicated, on every rank) against the ranks of (t, 1, 1)
-    (every rank, t of them) and (2, 1, 1) (ranks 0 and 1), gathered."""
+def rank_pair_debug(comm, device, layouts):
+    """14.1 and 15.1: two C12/79 float64 steps under pair_debug, the
+    one-rank step on the card (replicated, on every rank) against the
+    ranks of each layout (the first t x y ranks), gathered."""
     import torch.distributed as dist
 
     from pace_torch.models.fv3.dynamics import DynamicalCore
@@ -1753,10 +1917,13 @@ def rank_pair_debug(comm, device):
         replicated,
     )
 
-    pair = dist.new_group([0, 1])
+    # every rank takes part in creating each group
+    groups = [None if int(np.prod(layout)) == comm.size
+              else dist.new_group(list(range(int(np.prod(layout)))))
+              for layout in layouts]
     out = {}
-    for layout, group in (((comm.size, 1, 1), None), ((2, 1, 1), pair)):
-        if group is not None and comm.rank >= 2:
+    for layout, group in zip(layouts, groups):
+        if comm.rank >= int(np.prod(layout)):
             continue
         sub = comm if group is None else Comm(device, group)
         sizing, core, state = make_core(12, torch.float64, 225.0,
@@ -1786,14 +1953,42 @@ def rank_pair_debug(comm, device):
     return out
 
 
+def _gather_state(comm, state, names):
+    """Every rank's fields of `state`, flattened into one buffer, gathered
+    on rank 0: a list of {name: numpy array} by rank (None elsewhere)."""
+    import torch.distributed as dist
+
+    flat = torch.cat([getattr(state, k).reshape(-1) for k in names])
+    if comm.backend == "gloo":
+        flat = flat.cpu()
+    shapes = [tuple(getattr(state, k).shape) for k in names]
+    sizes = comm.all_gather([int(np.prod(s)) for s in shapes])
+    every = comm.all_gather(shapes)
+    total = max(sum(s) for s in sizes)
+    buf = torch.cat([flat, flat.new_zeros(total - flat.numel())])
+    parts = ([torch.empty_like(buf) for _ in range(comm.size)]
+             if comm.rank == 0 else None)
+    dist.gather(buf, parts, dst=0)
+    if comm.rank != 0:
+        return None
+    out = []
+    for part, shapes_r in zip(parts, every):
+        fields, offset = {}, 0
+        for name, shape in zip(names, shapes_r):
+            size = int(np.prod(shape))
+            fields[name] = (part[offset:offset + size].reshape(shape)
+                            .cpu().numpy())
+            offset += size
+        out.append(fields)
+    return out
+
+
 def rank_c192(comm, device, n=192):
     """14.2: C192/79 float32 k1/n6 at (t, 1, 1) (t ranks), one warm-up and
     three timed steps on every rank; then the state gathered on rank 0
     against the same four steps of one process on the whole cube.  Returns
     rank 0's report (None elsewhere)."""
     import dataclasses
-
-    import torch.distributed as dist
 
     from pace_torch.parallel.halo import RankTopology
     from pace_torch.parallel.partition import Partition
@@ -1837,15 +2032,8 @@ def rank_c192(comm, device, n=192):
                 state_bytes=state_bytes,
                 temp_bytes=peak - before, peak_bytes=peak)
     every = comm.all_gather(mine)
-    # one buffer a rank, on the host for gloo and on the card for NCCL
-    flat = torch.cat([getattr(state, k).reshape(-1) for k in names])
-    if comm.backend == "gloo":
-        flat = flat.cpu()
-    shapes = [tuple(getattr(state, k).shape) for k in names]
-    parts = ([torch.empty_like(flat) for _ in range(comm.size)]
-             if rank == 0 else None)
-    dist.gather(flat, parts, dst=0)
-    del state, core, flat
+    parts = _gather_state(comm, state, names)
+    del state, core
     torch.cuda.empty_cache()
     report = None
     if rank == 0:
@@ -1862,17 +2050,9 @@ def rank_c192(comm, device, n=192):
         torch.cuda.synchronize(device)
         ms_one = (time.perf_counter() - t0) / steps * 1e3
         launches_one = read_launches()
-        fields = {}
-        for r, part in enumerate(parts):
-            offset = 0
-            for name, shape in zip(names, shapes):
-                size = int(np.prod(shape))
-                fields.setdefault(name, []).append(
-                    part[offset:offset + size].reshape(shape).cpu().numpy())
-                offset += size
         differ, worst = [], (None, 0.0)
         for name in names:
-            got = partition.gather(fields[name])
+            got = partition.gather([p[name] for p in parts])
             want = getattr(full, name).cpu().numpy()
             if not np.array_equal(got, want, equal_nan=True):
                 differ.append(name)
@@ -1906,7 +2086,8 @@ def rank_main(out: str) -> None:
     _rank_log(comm.rank, f"{comm.size} ranks started by torchrun on "
               f"{torch.cuda.device_count()} card(s): {comm.describe()}")
     result = dict(backend=comm.describe(), staging=comm.staging)
-    result["pair_debug"] = rank_pair_debug(comm, device)
+    result["pair_debug"] = rank_pair_debug(
+        comm, device, [(comm.size, 1, 1), (2, 1, 1)])
     _rank_log(comm.rank, f"14.1 done: {result['pair_debug']}")
     result["c192"] = rank_c192(comm, device)
     if comm.rank == 0:
@@ -1917,19 +2098,29 @@ def rank_main(out: str) -> None:
     dist.destroy_process_group()
 
 
-def torchrun(args, cwd, timeout) -> subprocess.CompletedProcess:
-    """`torchrun --standalone --nproc_per_node 6 ARGS` from `cwd`; a
+def torchrun(args, cwd, timeout, ranks=RANKS,
+             tag="[14]") -> subprocess.CompletedProcess:
+    """`torchrun --standalone --nproc_per_node RANKS ARGS` from `cwd`; a
     child that fails fails the script."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc_per_node={RANKS}", *args]
+           f"--nproc_per_node={ranks}", *args]
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(cmd, cwd=cwd, env=env, capture_output=True,
                           text=True, timeout=timeout)
     for line in proc.stdout.splitlines():
-        if line.startswith("[14]"):
+        if line.startswith(tag):
             log(line)
     if proc.returncode != 0:
         log(proc.stdout[-3000:])
+        # the rank that failed first, and its own lines
+        import re
+
+        first = re.search(r"Root Cause.*?\n.*?rank\s*:\s*(\d+)",
+                          proc.stderr, re.S)
+        if first is not None:
+            mine = [line for line in proc.stderr.splitlines()
+                    if line.startswith(f"[rank{first.group(1)}]")]
+            log("\n".join(mine[-80:]))
         log(proc.stderr[-6000:])
         raise AssertionError(f"torchrun {' '.join(args)}: exit code "
                              f"{proc.returncode}")
@@ -1974,13 +2165,18 @@ def check_replay(card) -> None:
         raise AssertionError(f"replayed tile: {worst}")
 
 
-def compare_files(one: str, ranks: str) -> list:
+def compare_files(one: str, ranks: str, split=False, zarr=False) -> list:
     """Relative paths of the restart and diagnostics files of run `one`,
     each checked equal in run `ranks` (npz by their arrays, others byte
-    for byte)."""
+    for byte; with `zarr`, a zarr store's files too).  With `split` (ranks
+    that split tiles) an .npy file may differ in its bytes where only a
+    NaN's sign or payload differs: its values and NaNs must agree."""
+    def wanted(d, f):
+        return (f.endswith((".npy", ".npz", ".nc")) or f == "time.json"
+                or (zarr and ".zarr" in os.path.join(d, f)))
+
     files = sorted(os.path.relpath(os.path.join(d, f), one)
-                   for d, _, fs in os.walk(one) for f in fs
-                   if f.endswith((".npy", ".npz", ".nc")) or f == "time.json")
+                   for d, _, fs in os.walk(one) for f in fs if wanted(d, f))
     for name in files:
         a, b = os.path.join(one, name), os.path.join(ranks, name)
         if name.endswith(".npz"):
@@ -1992,6 +2188,9 @@ def compare_files(one: str, ranks: str) -> list:
         else:
             with open(a, "rb") as x, open(b, "rb") as y:
                 same = x.read() == y.read()
+            if not same and split and name.endswith(".npy"):
+                x, y = np.load(a), np.load(b)
+                same = np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
         if not same:
             raise AssertionError(f"{name}: the ranks' file differs")
     return files
@@ -2071,10 +2270,239 @@ def run_ranks(card, phase9_c48: str) -> dict:
             for k in ("K-T", "K-S", "K-F")}
 
 
-def main() -> None:
+# ---------------------------------------------------------------------------
+# phase 15: ranks that split tiles along x and y, started through torchrun
+# ---------------------------------------------------------------------------
+
+SPLIT_RANKS = 8
+SPLIT_LAYOUTS = [(1, 2, 2), (2, 2, 2), (1, 2, 4)]
+# c384_multihost_emulator.yaml cut to one card's size: 24 ranks of C24
+C384_CUT = dict(nx_tile=24, mesh=dict(layout=[6, 2, 2], multihost=False,
+                                      dcn_mesh_shape=[6, 1, 1]),
+                minutes=5)
+
+
+def _split_log(rank, msg):
+    if rank == 0:
+        log(f"[15] {msg}")
+
+
+def rank_split_c96(comm, device, layout=(2, 2, 2)):
+    """15.2: phase 8's coupled emulator step (the dycore and physics
+    settings of c384_multihost_emulator.yaml at C96/79 float32, dt 150 s)
+    behind the Driver at `layout`: one warm-up and two timed steps on every
+    rank; then the state gathered on rank 0 against the same three steps
+    of one process.  Returns rank 0's report (None elsewhere)."""
+    import dataclasses
+
+    from pace_torch.driver import Driver
+
+    rank, steps = comm.rank, 2
+    t0 = time.perf_counter()
+    driver = Driver.from_dict(emulator_driver_config(
+        mesh=dict(layout=list(layout))))
+    setup = time.perf_counter() - t0
+    driver.step()
+    torch.cuda.synchronize(device)
+    names = [f.name for f in dataclasses.fields(driver.state.dycore_state)]
+    state_bytes = sum(getattr(driver.state.dycore_state, k).nbytes
+                      for k in names)
+    comm.barrier()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    reset_launches()
+    driver.comm.start_timing()  # the Driver's own handle on the group
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        driver.step()
+    torch.cuda.synchronize(device)
+    ms = (time.perf_counter() - t0) / steps * 1e3
+    launches = read_launches()
+    exchange = driver.comm.timing()
+    peak = torch.cuda.max_memory_allocated(device)
+    expect = {k: v * steps for k, v in
+              expected_launches(driver.config.dycore_config).items()}
+    if launches != expect:
+        raise AssertionError(f"rank {rank}: launches {launches}, expected "
+                             f"{expect}")
+    dom = driver.dycore.domain
+    import resource
+
+    # the host memory the rank peaked at (it builds the whole cube's
+    # float64 grid and state and cuts them), kilobytes on Linux
+    host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    mine = dict(rank=rank, device=str(device), setup_s=setup, ms=ms,
+                host_peak_bytes=host,
+                block=[dom.Ni, dom.Nj], launches=launches,
+                exchanges=exchange["exchanges"] / steps,
+                exchange_bytes=exchange["bytes_sent"] / steps,
+                exchange_ms=(None if exchange["ms"] is None
+                             else exchange["ms"] / steps),
+                state_bytes=state_bytes, temp_bytes=peak - before,
+                peak_bytes=peak)
+    every = comm.all_gather(mine)
+    parts = _gather_state(comm, driver.state.dycore_state, names)
+    partition = driver.partition
+    del driver
+    torch.cuda.empty_cache()
+    report = None
+    if rank == 0:
+        # the same three steps of one process on the whole cube, while the
+        # other ranks wait
+        one = Driver.from_dict(emulator_driver_config())
+        one.step()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            one.step()
+        torch.cuda.synchronize(device)
+        ms_one = (time.perf_counter() - t0) / steps * 1e3
+        full = one.state.dycore_state
+        check_finite(15, full, one.state.sizing)
+        differ, worst = [], (None, 0.0)
+        for name in names:
+            got = partition.gather([p[name] for p in parts])
+            want = getattr(full, name).cpu().numpy()
+            if not np.array_equal(got, want, equal_nan=True):
+                differ.append(name)
+                scale = np.nanmax(np.abs(want)) + 1e-30
+                rel = float(np.nanmax(np.abs(got - want)) / scale)
+                if rel > worst[1] or worst[0] is None:
+                    worst = (name, rel)
+        report = dict(ranks=every, ms_one=ms_one, differ=differ,
+                      worst=worst, fields=len(names))
+        if differ:
+            raise AssertionError(f"C96 ranks at {layout} against one "
+                                 f"process: {differ} differ, worst {worst}")
+        del one, full
+        torch.cuda.empty_cache()
+    comm.barrier()
+    return report
+
+
+def split_rank_main(out: str) -> None:
+    """`chip_smoke.py --split-ranks OUT`, one rank of phase 15 under
+    torchrun (SPLIT_RANKS processes on the one card): 15.1 and 15.2; rank
+    0 writes OUT/split.json."""
+    from pace_torch.ops import _cuda
+    from pace_torch.parallel import comm as comm_mod
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
+    device = comm_mod.rank_device("cuda")
+    comm = comm_mod.init_process_group(device)
+    _cuda.library()
+    _split_log(comm.rank, f"{comm.size} ranks started by torchrun on "
+               f"{torch.cuda.device_count()} card(s): {comm.describe()}")
+    result = dict(backend=comm.describe())
+    t0 = time.perf_counter()
+    result["pair_debug"] = rank_pair_debug(comm, device, SPLIT_LAYOUTS)
+    result["pair_debug_s"] = time.perf_counter() - t0
+    _split_log(comm.rank, f"15.1 done: {result['pair_debug']}")
+    t0 = time.perf_counter()
+    result["c96"] = rank_split_c96(comm, device)
+    result["c96_s"] = time.perf_counter() - t0
+    if comm.rank == 0:
+        with open(os.path.join(out, "split.json"), "w") as f:
+            json.dump(result, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def run_split_ranks(card) -> dict:
+    """Phase 15.  Returns each kernel's launches on each rank in the C96
+    run's timed steps."""
+    import shutil
+
+    t15 = time.perf_counter()
+    out = os.path.join(REPO, "build", "phase15")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    write_emulator_weights()
+    torch.cuda.empty_cache()
+
+    # 15.1 and 15.2 in one torchrun of eight ranks
+    t0 = time.perf_counter()
+    torchrun([os.path.join(REPO, "chip_smoke.py"), "--split-ranks", out],
+             REPO, timeout=900, ranks=SPLIT_RANKS, tag="[15]")
+    with open(os.path.join(out, "split.json")) as f:
+        res = json.load(f)
+    log(f"[15] halo exchange: {res['backend']} (torchrun "
+        f"{time.perf_counter() - t0:.1f} s)")
+    for layout, r in res["pair_debug"].items():
+        log(f"[15] 15.1 C12/79 float64, two steps, pair_debug one rank "
+            f"against layout {layout}: worst leaf {r['worst']} max abs "
+            f"{r['max_abs']:.3e}, every leaf identical (required) "
+            f"({r['seconds']:.1f} s)")
+    c96 = res["c96"]
+    for r in c96["ranks"]:
+        log(f"[15] 15.2 C96/79 float32 k2/n3 emulator at (2, 2, 2) rank "
+            f"{r['rank']} on {r['device']}, block {r['block']}: set-up "
+            f"{r['setup_s']:.1f} s, {r['ms']:.3f} ms/step, launches a step "
+            + "/".join(str(r["launches"][k] // 2)
+                       for k in ("K-T", "K-S", "K-F"))
+            + f", {r['exchanges']:.0f} exchanges a step, "
+            f"{r['exchange_bytes'] / 1e6:.3f} MB sent a step (from the "
+            f"plan), exchange {r['exchange_ms']:.3f} ms a step (CUDA "
+            f"events); memory: state {r['state_bytes']} bytes, temporary "
+            f"{r['temp_bytes']}, peak {r['peak_bytes']}; host peak "
+            f"{r['host_peak_bytes']} bytes")
+    slowest = max(r["ms"] for r in c96["ranks"])
+    log(f"[15] 15.2 ms/step: one process on the whole cube "
+        f"{c96['ms_one']:.3f}, eight ranks sharing the card {slowest:.3f} "
+        f"(slowest rank) on {card}; 15.1 {res['pair_debug_s']:.1f} s, 15.2 "
+        f"{res['c96_s']:.1f} s")
+    log(f"[15] 15.2 gathered state after 3 steps against one process: "
+        + (f"all {c96['fields']} fields identical" if not c96["differ"]
+           else f"{c96['differ']} differ, worst {c96['worst']}"))
+    if c96["differ"]:
+        raise AssertionError(f"C96 ranks against one process: {c96}")
+
+    # 15.3 c384_multihost_emulator.yaml, cut to C24 and 24 ranks, through
+    # torchrun against the one-rank run of the same cut yaml
+    t0 = time.perf_counter()
+    one = yaml_copy("c384_multihost_emulator.yaml",
+                    os.path.join(out, "c384_one"),
+                    **dict(C384_CUT, mesh=dict(layout=[1, 1, 1])))
+    run_cli(one)
+    t_one = time.perf_counter() - t0
+    work = os.path.join(out, "c384_split")
+    path = yaml_copy("c384_multihost_emulator.yaml", work, **C384_CUT)
+    layout = C384_CUT["mesh"]["layout"]
+    ranks = int(np.prod(layout))
+    t0 = time.perf_counter()
+    torchrun(["-m", "pace_torch.driver.run", path, "--log-level",
+              "WARNING"], work, timeout=600, ranks=ranks, tag="[15]")
+    t_split = time.perf_counter() - t0
+    files = compare_files(os.path.dirname(one), work, split=True, zarr=True)
+    with open(os.path.join(work, "c384_emulator_perf.json")) as f:
+        report = json.load(f)
+    ms = np.mean([t["mainloop"] for t in report["times_per_step"]]) * 1e3
+    stores = sorted({f.split(os.sep)[1] for f in files if os.sep in f})
+    log(f"[15] 15.3 c384_multihost_emulator.yaml cut to nx_tile 24, layout "
+        f"{layout} ({ranks} ranks), multihost false, 2 steps, through "
+        f"torchrun -m pace_torch.driver.run: {len(files)} diagnostics "
+        f"files equal to the one-rank run's ({', '.join(stores)}); "
+        f"{ms:.3f} ms/step (mainloop, slowest rank), SYPD "
+        f"{report['sypd']:.4f}; one rank {t_one:.1f} s, {ranks} ranks "
+        f"{t_split:.1f} s on {card}")
+    if not files:
+        raise AssertionError("15.3: the cut yaml wrote no files to compare")
+    log(f"[15] phase 15 took {time.perf_counter() - t15:.0f} s")
+    return {k: [r["launches"][k] for r in c96["ranks"]]
+            for k in ("K-T", "K-S", "K-F")}
+
+
+def main(phases=None) -> None:
+    """Every phase; with `phases` (a set of phase numbers, from `--phases
+    2,15`) only those and phases 0 and 1, and no result lines."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs on a GPU only")
     from pace_torch.ops import _cuda
+
+    def run(phase):
+        return phases is None or phase in phases
 
     started = time.perf_counter()
 
@@ -2103,67 +2531,90 @@ def main() -> None:
 
     # ---- phase 2
     results = {}
-    check_transport(results)
-    check_sim1(results)
-    check_fillz(results)
-    check_rank_shapes()
+    if run(2):
+        check_transport(results)
+        check_sim1(results)
+        check_fillz(results)
+        check_rank_shapes()
+        check_split_shapes()
 
     # ---- phase 3
-    check_c12_digests()
+    if run(3):
+        check_c12_digests()
 
     # ---- phase 4: the main path
-    launches = run_path(4, 48, 450.0, 2, 5, card, k_split=1, n_split=2)
+    if run(4):
+        launches = run_path(4, 48, 450.0, 2, 5, card, k_split=1, n_split=2)
 
     # ---- phase 5: the C96 SHiELD-like settings
-    run_path(5, 96, 300.0, 1, 2, card, **SHIELD)
+    if run(5):
+        run_path(5, 96, 300.0, 1, 2, card, **SHIELD)
 
     # ---- phase 6: the production configuration of bench.py
-    run_path(6, 48, 450.0, 1, 2, card, k_split=2, n_split=6)
+    if run(6):
+        run_path(6, 48, 450.0, 1, 2, card, k_split=2, n_split=6)
 
     # ---- phases 7, 7b, 8: the coupled step
-    coupled = run_coupled(card)
-    check_card_against_cpu()
-    run_emulator(card)
+    if run(7):
+        coupled = run_coupled(card)
+        check_card_against_cpu()
+    if run(8):
+        run_emulator(card)
 
     # ---- phase 9: the yaml entry point
-    t9 = time.perf_counter()
-    yaml_launches = run_yaml_configs(card)
-    log(f"[9] phase 9 took {time.perf_counter() - t9:.0f} s")
+    if run(9):
+        t9 = time.perf_counter()
+        yaml_launches = run_yaml_configs(card)
+        log(f"[9] phase 9 took {time.perf_counter() - t9:.0f} s")
 
     # ---- phase 10: the dycore branches
-    t10 = time.perf_counter()
-    subcycle = run_branches(card)
-    log(f"[10] phase 10 took {time.perf_counter() - t10:.0f} s")
+    if run(10):
+        t10 = time.perf_counter()
+        subcycle = run_branches(card)
+        log(f"[10] phase 10 took {time.perf_counter() - t10:.0f} s")
 
     # ---- phase 11: the JW day-1 anchor
-    check_jw_day1()
+    if run(11):
+        check_jw_day1()
 
     # ---- phase 12: the other entry points
-    t12 = time.perf_counter()
-    run_entry_points(card)
-    log(f"[12] phase 12 took {time.perf_counter() - t12:.0f} s")
+    if run(12):
+        t12 = time.perf_counter()
+        run_entry_points(card)
+        log(f"[12] phase 12 took {time.perf_counter() - t12:.0f} s")
 
     # ---- phase 13: the savepoint harness, tools and the restart writer
-    t13 = time.perf_counter()
-    import pace_torch.utils.translate_cases_grid  # noqa: F401 (registers)
-    import pace_torch.utils.translate_cases_physics  # noqa: F401
-    from pace_torch.utils.translate_cases import CASES
+    if run(13):
+        t13 = time.perf_counter()
+        import pace_torch.utils.translate_cases_grid  # noqa: F401
+        import pace_torch.utils.translate_cases_physics  # noqa: F401
+        from pace_torch.utils.translate_cases import CASES
 
-    case_savepoints(sorted(CASES), 12, (1, 1))
-    case_savepoints(KERNEL_CASES, 48, (3, 3))
-    check_tools(card)
-    check_fastpack(card)
-    log(f"[13] phase 13 took {time.perf_counter() - t13:.0f} s")
+        case_savepoints(sorted(CASES), 12, (1, 1))
+        case_savepoints(KERNEL_CASES, 48, (3, 3))
+        check_tools(card)
+        check_fastpack(card)
+        log(f"[13] phase 13 took {time.perf_counter() - t13:.0f} s")
 
-    # ---- phase 14: ranks of a (t, 1, 1) layout through torchrun
-    launches_ranks = run_ranks(card, PHASE9_C48)
-    log(f"[14] all phases took {time.perf_counter() - started:.0f} s")
+    # ---- phase 14: ranks of a (t, 1, 1) layout through torchrun (needs
+    # phase 9's files)
+    if run(14) and run(9):
+        launches_ranks = run_ranks(card, PHASE9_C48)
+
+    # ---- phase 15: ranks that split tiles along x and y through torchrun
+    if run(15):
+        launches_split = run_split_ranks(card)
+    log(f"[15] all phases took {time.perf_counter() - started:.0f} s")
+    if phases is not None:
+        log(f"phases {sorted(phases)} only: no result lines")
+        return
 
     kernels = [
         dict(**KERNELS[k], route="cuda", launches=launches[k],
              launches_coupled=coupled[k], launches_yaml=yaml_launches[k],
              launches_subcycle=subcycle[k],
              launches_ranks=launches_ranks[k],
+             launches_split_ranks=launches_split[k],
              max_abs_err=results[k][0],
              ms=results[k][1],
              plain_ms=results[k][2], bound_ms=results[k][3],
@@ -2176,9 +2627,12 @@ def main() -> None:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
-
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ranks"]:
         rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--split-ranks"]:
+        split_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--phases"]:
+        main({int(p) for p in sys.argv[2].split(",")})
     else:
         main()

@@ -7,15 +7,19 @@ earlier version of their sources, on one GPU, in one process.
     python -m pace_torch.compare_kernels build/earlier
 
 Only the kernels whose source the directory holds are compared.  An
-earlier fvtp2d.cu or sim1.cu must have the C interface of the first CUDA
-port (pace_fvtp2d_* with four scratch fields before fx and fy, hord 6 or
-8; pace_sim1_* with one scratch buffer of pace_sim1_scratch_slots() rows);
-pace_fillz_* has kept its interface.  The sources are built with the same
-nvcc flags into build/pace_torch/earlier/.
+earlier fvtp2d.cu may have any of the interfaces pace_fvtp2d_* has had,
+told apart by its source: the first CUDA port's (four scratch fields
+before fx and fy), the whole tiles' of PRs 2-7 (T, N, nz, n, h, hord) or
+the tile count's of PR 8 (T, tiles, N, nz, n, h, hord).  An earlier
+sim1.cu must have the first port's (one scratch buffer of
+pace_sim1_scratch_slots() rows); pace_fillz_* has kept its interface.
+The sources are built with the same nvcc flags into
+build/pace_torch/earlier/.
 
 The inputs, all at C48/79 float32:
   - synthetic: pace_torch.testing's seeded inputs (chip_smoke.py phase 2):
-    transport T=8 at hord 8, SIM1 on (6, 56, 56, 79), fillz on
+    transport T=8 at hord 8 and, as "synthetic hord 6", T=3 at hord 6
+    (d_sw's call), SIM1 on (6, 56, 56, 79), fillz on
     (9, 6, 56, 56, 79) with 30% negative values and, as "synthetic mostly
     clean", with one value in 10,000 negative;
   - step: the arguments of the first T=8 transport call (tracer
@@ -45,6 +49,7 @@ import sys
 import torch
 
 from pace_torch.ops import _cuda, fillz, fvtp2d, riemann
+from pace_torch.utils.gridtools import Domain
 
 WARMUP, REPEATS = 3, 20
 SOURCES = {"K-T": "fvtp2d.cu", "K-S": "sim1.cu", "K-F": "fillz.cu"}
@@ -90,18 +95,27 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def earlier_transport(lib):
-    fns = {torch.float32: _fn(lib, "pace_fvtp2d_f32", 17, 6, 0),
-           torch.float64: _fn(lib, "pace_fvtp2d_f64", 17, 6, 0)}
+def earlier_transport(lib, source: str):
+    """The earlier kernel of `source`'s interface, on whole tiles (n, h)."""
+    scratch_fields = 4 if "void *fy_in" in source else 0
+    tiles = "int T, int tiles," in source
+    n_int = 6 + int(tiles)
+    fns = {dtype: _fn(lib, f"pace_fvtp2d_{suffix}", 13 + scratch_fields,
+                      n_int, 0)
+           for dtype, suffix in ((torch.float32, "f32"),
+                                 (torch.float64, "f64"))}
 
-    def run(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area, n, h,
+    def run(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area, dom,
             hord):
-        T, _, N, _, nz = q_y.shape
-        scratch = [torch.empty_like(q_y) for _ in range(4)]
+        if not dom.is_whole:
+            raise ValueError("the earlier transport kernel takes whole tiles")
+        T, ntiles, N, _, nz = q_y.shape
+        scratch = [torch.empty_like(q_y) for _ in range(scratch_fields)]
         fx, fy = torch.empty_like(q_y), torch.empty_like(q_y)
         ptrs = [t.data_ptr() for t in (q_y, q_x, crx, cry, xfx, yfx, xmf,
                                        ymf, dxa, dya, area, *scratch, fx, fy)]
-        err = fns[q_y.dtype](*ptrs, T, N, nz, n, h, hord, _stream(q_y))
+        ints = ((T, ntiles) if tiles else (T,)) + (N, nz, dom.n, dom.h, hord)
+        err = fns[q_y.dtype](*ptrs, *ints, _stream(q_y))
         if err:
             raise RuntimeError(f"earlier transport kernel failed ({err})")
         return fx, fy
@@ -163,14 +177,20 @@ def synthetic_inputs() -> dict:
                 for a in arrays]
 
     arrays = transport_inputs(48, 79, 8)
+    hord6 = transport_inputs(48, 79, 3)
     return {
         "synthetic": {
-            "K-T": (*on(arrays[k] for k in TRANSPORT_KEYS), 48, 3, 8),
+            "K-T": (*on(arrays[k] for k in TRANSPORT_KEYS),
+                    Domain.whole(48, 3), 8),
             "K-S": (*on(sim1_inputs(56, 56, 79)), 225.0, 0.05),
             "K-F": tuple(on(fillz_inputs(9, 56, 56, 79))),
         },
         "synthetic mostly clean": {
             "K-F": tuple(on(fillz_inputs(9, 56, 56, 79, neg_frac=1e-4))),
+        },
+        "synthetic hord 6": {
+            "K-T": (*on(hord6[k] for k in TRANSPORT_KEYS),
+                    Domain.whole(48, 3), 6),
         },
     }
 
@@ -287,8 +307,10 @@ def main() -> None:
     src_dir = pathlib.Path(os.path.abspath(sys.argv[1]))
     lib = build_earlier(src_dir)
     _cuda.library()
+    source = src_dir / SOURCES["K-T"]
     versions = {
-        "K-T": (earlier_transport, fvtp2d.transport_batched_cuda),
+        "K-T": (lambda lib: earlier_transport(lib, source.read_text()),
+                fvtp2d.transport_batched_cuda),
         "K-S": (earlier_sim1, riemann.sim1_solver_cuda),
         "K-F": (earlier_fillz, current_fillz),
     }

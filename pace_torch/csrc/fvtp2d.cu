@@ -2,9 +2,10 @@
 //
 // Replaces pace_tpu/ops/pallas/fvtp2d_pallas.py:transport_batched (its
 // bodies _k1_inner_y, _k2_x_passes and _k3_outer_y).  For T stacked fields
-// of `tiles` tiles (6 for the whole cube, 6 / t for a rank of a (t, 1, 1)
-// layout) sharing Courant numbers, area fluxes, unit fluxes and metrics it
-// returns
+// of `tiles` tiles (6 for the whole cube, 6 / t for a rank of a (t, x, y)
+// layout), each a block of Ni x Nj storage points (the whole N x N tile,
+// or the part of it a rank holds), sharing Courant numbers, area fluxes,
+// unit fluxes and metrics it returns
 //   fx = 0.5 * (xppm(qay) + xppm(q_x)) * xmf
 //   fy = 0.5 * (yppm(qax) + yppm(q_y)) * ymf
 // with qay / qax the fields advected by the inner y / x PPM pass, exactly
@@ -47,11 +48,15 @@
 // Whole-array semantics: the reference evaluates every intermediate over
 // the whole padded array with zero-filled shifts at the array bounds and
 // overwrites six static tile-edge lines.  Every per-cell value is 0 for an
-// index outside [0, N), the slopes of the shifted lines (dm_left,
-// dm_right) are evaluated on the zero-filled shifted line and not taken
-// from a neighbour's dm, and the edge lines are matched by index in the
-// reference's precedence, so the kernel agrees with the plain version over
-// the whole array and not only on the compute domain.
+// index outside the block ([0, Ni) along i, [0, Nj) along j), the slopes
+// of the shifted lines (dm_left, dm_right) are evaluated on the
+// zero-filled shifted line and not taken from a neighbour's dm, and the
+// edge lines are matched by index in the reference's precedence, so the
+// kernel agrees with the plain version over the whole block and not only
+// on the compute domain.  Along each axis the tile's two edge lines are
+// given as local indices lo (the tile's h) and hi (its h + n); a block
+// that does not hold an edge gets an index outside its extent, which no
+// line matches.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -110,7 +115,8 @@ __device__ __forceinline__ bool inside(int m, int N) {
   return m >= 0 && m < N;
 }
 
-// A metric line along the PPM axis (dxa or dya), zero outside [0, N).
+// A metric line along the PPM axis (dxa or dya), zero outside [0, N) (N
+// the block's extent along that axis).
 template <typename R>
 struct Line {
   const R* p;
@@ -131,13 +137,13 @@ __device__ __forceinline__ R slope(R gm1, R g0, R gp1) {
 }
 
 // The tile-edge interface value al (xppm compute_al) at an edge line m;
-// q(m+o) = qo for o = -2 .. 1.
+// q(m+o) = qo for o = -2 .. 1; lo and hi are the tile's edge lines.
 template <typename R>
 __device__ R al_edge(int m, R qm2, R qm1, R q0, R qp1, const Line<R>& d,
-                     int n, int h) {
-  if (m == h + 1 || m == h + n + 1)
+                     int lo, int hi) {
+  if (m == lo + 1 || m == hi + 1)
     return R(kC3) * qm1 + R(kC2) * q0 + R(kC1) * qp1;
-  if (m == h || m == h + n)
+  if (m == lo || m == hi)
     return R(0.5) * (((R(2) * d(m - 1) + d(m - 2)) * qm1 - d(m - 1) * qm2) /
                          (d(m - 2) + d(m - 1)) +
                      ((R(2) * d(m) + d(m + 1)) * q0 - d(m) * qp1) /
@@ -150,8 +156,8 @@ __device__ R al_edge(int m, R qm2, R qm1, R q0, R qp1, const Line<R>& d,
 // al0 = al(m), al1 = al(m+1).
 template <typename R>
 __device__ void blbr_edge(int m, R qm2, R qm1, R q0, R qp1, R qp2, R dm0,
-                          R al0, R al1, const Line<R>& d, int N, int n, int h,
-                          R& bl, R& br) {
+                          R al0, R al1, const Line<R>& d, int N, int lo,
+                          int hi, R& bl, R& br) {
   // the slopes of the zero-filled lines shifted by -1 (left) and +1 (right)
   auto dm_left = [&]() {
     return slope(inside(m - 1, N) ? qm2 : R(0), qm1,
@@ -182,22 +188,22 @@ __device__ void blbr_edge(int m, R qm2, R qm1, R q0, R qp1, R qp2, R dm0,
   // the reference applies the line updates in this order; a later line
   // wins where two coincide (a tile of fewer than four cells)
   R xbl, xbr;
-  if (m == h + n) {
+  if (m == hi) {
     xbl = xt_edge_1();
     xbr = R(kS11) * (qp1 - q0) - R(kS14) * dm_right() + q0;
-  } else if (m == h + n - 1) {
+  } else if (m == hi - 1) {
     xbl = R(kS15) * q0 + R(kS11) * qm1 + R(kS14) * dm_left();
     xbr = xt_edge_0();
-  } else if (m == h + n - 2) {
+  } else if (m == hi - 2) {
     xbl = al0;
     xbr = R(kS15) * qp1 + R(kS11) * q0 + R(kS14) * dm0;
-  } else if (m == h + 1) {
+  } else if (m == lo + 1) {
     xbl = R(kS15) * qm1 + R(kS11) * q0 - R(kS14) * dm0;
     xbr = al1;
-  } else if (m == h) {
+  } else if (m == lo) {
     xbl = xt_edge_1();
     xbr = R(kS15) * q0 + R(kS11) * qp1 - R(kS14) * dm_right();
-  } else {  // h - 1
+  } else {  // lo - 1
     xbl = R(kS14) * dm_left() + R(kS11) * (qm1 - q0) + q0;
     xbr = xt_edge_0();
   }
@@ -217,14 +223,15 @@ __device__ void blbr_edge(int m, R qm2, R qm1, R q0, R qp1, R qp2, R dm0,
 // PPM fluxes (xppm _flux_core) across the NF interfaces m0 .. m0+NF-1 of
 // one line, streamed: emit(f, flux) is called for interface m0 + f in
 // order.  q[p] is the line at index m0 - 3 + p (zero outside [0, N)), c[f]
-// the Courant number at interface m0 + f.  CLS is the limiter class: 5
+// the Courant number at interface m0 + f; lo and hi are the tile's edge
+// lines along the line.  CLS is the limiter class: 5
 // and 6 for |ord| < 8 (smt5 as bl * br < 0 at 5), 8 for |ord| >= 8.  Each
 // per-cell value (dm, al, bl, br, smt5) is computed once, for the cells
 // m0-1 .. m0+NF-1, and only the last two cells' values are kept.
 template <typename R, int CLS, int NF, typename Emit>
 __device__ __forceinline__ void ppm_line(const R (&q)[NF + 5],
                                          const R (&c)[NF], const Line<R>& d,
-                                         int m0, int N, int n, int h,
+                                         int m0, int N, int lo, int hi,
                                          Emit&& emit) {
   // the slope at m0 - 3 + p (p >= 1), 0 outside [0, N)
   auto dm_at = [&](int p) {
@@ -234,9 +241,9 @@ __device__ __forceinline__ void ppm_line(const R (&q)[NF + 5],
   auto al6_at = [&](int p) {
     const int m = m0 - 3 + p;
     if (!inside(m, N)) return R(0);
-    if (m == h - 1 || m == h || m == h + 1 || m == h + n - 1 ||
-        m == h + n || m == h + n + 1)
-      return al_edge(m, q[p - 2], q[p - 1], q[p], q[p + 1], d, n, h);
+    if (m == lo - 1 || m == lo || m == lo + 1 || m == hi - 1 || m == hi ||
+        m == hi + 1)
+      return al_edge(m, q[p - 2], q[p - 1], q[p], q[p + 1], d, lo, hi);
     return R(kP1) * (q[p - 1] + q[p]) + R(kP2) * (q[p - 2] + q[p + 1]);
   };
   // rolling state at cell m = m0 - 1 + p: dm(m-1), dm(m), al(m)
@@ -262,10 +269,10 @@ __device__ __forceinline__ void ppm_line(const R (&q)[NF + 5],
                                     R(1.0 / 3.0) * (dm_c - dm_n)
                               : R(0);
       if (inside(m, N)) {
-        if (m == h - 1 || m == h || m == h + 1 || m == h + n - 2 ||
-            m == h + n - 1 || m == h + n) {
+        if (m == lo - 1 || m == lo || m == lo + 1 || m == hi - 2 ||
+            m == hi - 1 || m == hi) {
           blbr_edge(m, q[p], q[p + 1], q0, q[p + 3], q[p + 4], dm_c, al_c,
-                    al_n, d, N, n, h, bl, br);
+                    al_n, d, N, lo, hi, bl, br);
         } else {
           const R xt2 = R(2) * dm_c;
           bl = R(-1) * fsign(pmin(R(fabs(xt2)), R(fabs(al_c - q0))), xt2);
@@ -313,11 +320,12 @@ struct Fields {
   const R *q_y, *q_x;                         // this field and tile, + k
   const R *crx, *cry, *xfx, *yfx, *xmf, *ymf;  // this tile, + k
   const R *dxa, *dya, *area;                   // this tile
-  int N, nz, n, h;
+  int Ni, Nj, nz;
+  int lo_i, hi_i, lo_j, hi_j;                  // the tile's edge lines
   bool valid;                                  // k < nz
-  __device__ int at(int i, int j) const { return (i * N + j) * nz; }
+  __device__ int at(int i, int j) const { return (i * Nj + j) * nz; }
   __device__ R load(const R* p, int i, int j) const {
-    return (valid && inside(i, N) && inside(j, N)) ? p[at(i, j)] : R(0);
+    return (valid && inside(i, Ni) && inside(j, Nj)) ? p[at(i, j)] : R(0);
   }
 };
 
@@ -332,7 +340,7 @@ __device__ __forceinline__ void inner_line(const Fields<R>& F, const R* qf,
                                            const R* cf, const R* af,
                                            const R* dmet, int m0, int fixed,
                                            Store&& store) {
-  const int N = F.N;
+  const int N = DIR == 0 ? F.Ni : F.Nj;  // the line's extent
   auto ij_i = [&](int m) { return DIR == 0 ? m : fixed; };
   auto ij_j = [&](int m) { return DIR == 0 ? fixed : m; };
   R q[B + 6], c[B + 1], a[B + 1];
@@ -344,15 +352,17 @@ __device__ __forceinline__ void inner_line(const Fields<R>& F, const R* qf,
     c[f] = F.load(cf, ij_i(m0 + f), ij_j(m0 + f));
     a[f] = F.load(af, ij_i(m0 + f), ij_j(m0 + f));
   }
-  const Line<R> d = DIR == 0 ? Line<R>{dmet + fixed, N, N}
-                             : Line<R>{dmet + fixed * N, 1, N};
+  const Line<R> d = DIR == 0 ? Line<R>{dmet + fixed, F.Nj, N}
+                             : Line<R>{dmet + fixed * F.Nj, 1, N};
+  const int lo = DIR == 0 ? F.lo_i : F.lo_j;
+  const int hi = DIR == 0 ? F.hi_i : F.hi_j;
   R prev = R(0);
-  ppm_line<R, CLS, B + 1>(q, c, d, m0, N, F.n, F.h, [&](int f, R v) {
+  ppm_line<R, CLS, B + 1>(q, c, d, m0, N, lo, hi, [&](int f, R v) {
     if (f > 0) {
       const int b = f - 1, m = m0 + b;
       R adv = R(0);
       if (inside(m, N)) {
-        const R ar = F.area[ij_i(m) * N + ij_j(m)];
+        const R ar = F.area[ij_i(m) * F.Nj + ij_j(m)];
         const bool next = m + 1 < N;
         const R f1 = next ? a[b + 1] * v : R(0);
         adv = (q[b + 3] * ar + a[b] * prev - f1) /
@@ -372,8 +382,8 @@ __global__ void __launch_bounds__(KC * LANES, sizeof(R) == 4 ? MINB : 1)
                      const R* __restrict__ xmf, const R* __restrict__ ymf,
                      const R* __restrict__ dxa, const R* __restrict__ dya,
                      const R* __restrict__ area, R* __restrict__ fx,
-                     R* __restrict__ fy, int tiles, int N, int nz, int n,
-                     int h, int tiles_j) {
+                     R* __restrict__ fy, int tiles, int Ni, int Nj, int nz,
+                     int lo_i, int hi_i, int lo_j, int hi_j, int tiles_j) {
   __shared__ R qay_s[XI][BJ][KC];   // qay on i0-3 .. i0+BI+1, own j
   __shared__ R qax_s[BI][XJ][KC];   // qax on own i, j0-3 .. j0+BJ+1
   __shared__ R fyin_s[BI][BJ][KC];  // inner y flux on own points
@@ -384,20 +394,21 @@ __global__ void __launch_bounds__(KC * LANES, sizeof(R) == 4 ? MINB : 1)
   const int i0 = ti * BI, j0 = (blockIdx.x - ti * tiles_j) * BJ;
   const int k = blockIdx.y * KC + tk;
   const int tile = blockIdx.z % tiles;
-  const long plane = (long)N * N * nz;
+  const long plane = (long)Ni * Nj * nz;
   const long field_off = (long)blockIdx.z * plane + k;
   const long tile_off = (long)tile * plane + k;
-  const long met_off = (long)tile * N * N;
+  const long met_off = (long)tile * Ni * Nj;
 
   Fields<R> F{q_y + field_off, q_x + field_off, crx + tile_off,
               cry + tile_off,  xfx + tile_off,  yfx + tile_off,
               xmf + tile_off,  ymf + tile_off,  dxa + met_off,
-              dya + met_off,   area + met_off,  N,
-              nz,              n,               h,
+              dya + met_off,   area + met_off,  Ni,
+              Nj,              nz,              lo_i,
+              hi_i,            lo_j,            hi_j,
               k < nz};
 
   // inner passes: y lines i0-3 .. i0+BI+1 on q_y, x lines j0-3 .. j0+BJ+1
-  // on q_x; a line outside [0, N) advects to 0 (the zero-filled shift)
+  // on q_x; a line outside the block advects to 0 (the zero-filled shift)
   for (int task = lane; task < XI + XJ; task += LANES) {
     if (task < XI) {
       const int i = i0 - 3 + task;
@@ -406,7 +417,7 @@ __global__ void __launch_bounds__(KC * LANES, sizeof(R) == 4 ? MINB : 1)
         qay_s[task][b][tk] = adv;
         if (own) fyin_s[task - 3][b][tk] = flux;
       };
-      if (inside(i, N)) {
+      if (inside(i, Ni)) {
         inner_line<R, CLS, BJ, 1>(F, F.q_y, F.cry, F.yfx, F.dya, j0, i,
                                   store);
       } else {
@@ -421,7 +432,7 @@ __global__ void __launch_bounds__(KC * LANES, sizeof(R) == 4 ? MINB : 1)
         qax_s[b][l][tk] = adv;
         if (own) fxin_s[b][l - 3][tk] = flux;
       };
-      if (inside(j, N)) {
+      if (inside(j, Nj)) {
         inner_line<R, CLS, BI, 0>(F, F.q_x, F.crx, F.xfx, F.dxa, i0, j,
                                   store);
       } else {
@@ -438,32 +449,32 @@ __global__ void __launch_bounds__(KC * LANES, sizeof(R) == 4 ? MINB : 1)
   for (int task = lane; task < BI + BJ; task += LANES) {
     if (task < BJ) {
       const int j = j0 + task;
-      if (!inside(j, N)) continue;
+      if (!inside(j, Nj)) continue;
       R q[BI + 5], c[BI];
 #pragma unroll
       for (int p = 0; p < BI + 5; ++p) q[p] = qay_s[p][task][tk];
 #pragma unroll
       for (int f = 0; f < BI; ++f) c[f] = F.load(F.crx, i0 + f, j);
-      ppm_line<R, CLS, BI>(q, c, Line<R>{F.dxa + j, N, N}, i0, N, n, h,
-                           [&](int b, R mean) {
+      ppm_line<R, CLS, BI>(q, c, Line<R>{F.dxa + j, Nj, Ni}, i0, Ni, lo_i,
+                           hi_i, [&](int b, R mean) {
         const int i = i0 + b;
-        if (F.valid && inside(i, N))
+        if (F.valid && inside(i, Ni))
           fx[out_off + F.at(i, j)] =
               R(0.5) * (mean + fxin_s[b][task][tk]) * F.xmf[F.at(i, j)];
       });
     } else {
       const int l = task - BJ;
       const int i = i0 + l;
-      if (!inside(i, N)) continue;
+      if (!inside(i, Ni)) continue;
       R q[BJ + 5], c[BJ];
 #pragma unroll
       for (int p = 0; p < BJ + 5; ++p) q[p] = qax_s[l][p][tk];
 #pragma unroll
       for (int f = 0; f < BJ; ++f) c[f] = F.load(F.cry, i, j0 + f);
-      ppm_line<R, CLS, BJ>(q, c, Line<R>{F.dya + i * N, 1, N}, j0, N, n, h,
-                           [&](int b, R mean) {
+      ppm_line<R, CLS, BJ>(q, c, Line<R>{F.dya + i * Nj, 1, Nj}, j0, Nj,
+                           lo_j, hi_j, [&](int b, R mean) {
         const int j = j0 + b;
-        if (F.valid && inside(j, N))
+        if (F.valid && inside(j, Nj))
           fy[out_off + F.at(i, j)] =
               R(0.5) * (mean + fyin_s[l][b][tk]) * F.ymf[F.at(i, j)];
       });
@@ -476,11 +487,11 @@ int dispatch(const void* q_y, const void* q_x, const void* crx,
              const void* cry, const void* xfx, const void* yfx,
              const void* xmf, const void* ymf, const void* dxa,
              const void* dya, const void* area, void* fx, void* fy, int T,
-             int tiles, int N, int nz, int n, int h, int hord,
-             void* stream) {
+             int tiles, int Ni, int Nj, int nz, int lo_i, int hi_i,
+             int lo_j, int hi_j, int hord, void* stream) {
   auto c = [](const void* p) { return static_cast<const R*>(p); };
   auto m = [](void* p) { return static_cast<R*>(p); };
-  const int tiles_i = (N + BI - 1) / BI, tiles_j = (N + BJ - 1) / BJ;
+  const int tiles_i = (Ni + BI - 1) / BI, tiles_j = (Nj + BJ - 1) / BJ;
   const dim3 grid(tiles_i * tiles_j, (nz + KC - 1) / KC, T * tiles);
   const dim3 block(KC, LANES);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -489,7 +500,8 @@ int dispatch(const void* q_y, const void* q_x, const void* crx,
 #define PACE_LAUNCH(CLS)                                                    \
   transport_kernel<R, CLS><<<grid, block, 0, s>>>(                          \
       c(q_y), c(q_x), c(crx), c(cry), c(xfx), c(yfx), c(xmf), c(ymf),       \
-      c(dxa), c(dya), c(area), m(fx), m(fy), tiles, N, nz, n, h, tiles_j)
+      c(dxa), c(dya), c(area), m(fx), m(fy), tiles, Ni, Nj, nz, lo_i, hi_i, \
+      lo_j, hi_j, tiles_j)
   if (mord >= 8)
     PACE_LAUNCH(8);
   else if (mord == 5)
@@ -506,11 +518,11 @@ int dispatch(const void* q_y, const void* q_x, const void* crx,
   const void *q_y, const void *q_x, const void *crx, const void *cry,      \
       const void *xfx, const void *yfx, const void *xmf, const void *ymf,  \
       const void *dxa, const void *dya, const void *area, void *fx,        \
-      void *fy, int T, int tiles, int N, int nz, int n, int h, int hord,  \
-      void *stream
+      void *fy, int T, int tiles, int Ni, int Nj, int nz, int lo_i,      \
+      int hi_i, int lo_j, int hi_j, int hord, void *stream
 #define FVTP2D_PASS                                                       \
   q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area, fx, fy, T, tiles, \
-      N, nz, n, h, hord, stream
+      Ni, Nj, nz, lo_i, hi_i, lo_j, hi_j, hord, stream
 
 extern "C" int pace_fvtp2d_f32(FVTP2D_ARGS) {
   return dispatch<float>(FVTP2D_PASS);

@@ -147,22 +147,25 @@ class NpzDiagnostics(Diagnostics):
     def _collect(self, state) -> Optional[dict]:
         """The configured (and derived) variables, halo-stripped, as numpy
         arrays read from the device in one transfer (the whole cube's on
-        rank 0, None on the other ranks)."""
-        out = {}
+        rank 0, None on the other ranks): each rank sends its block, and
+        rank 0 strips the gathered cube."""
+        fields = {}  # output name: (array, name of its metadata)
         for name in self.config.names:
-            out[name] = self._compute_domain(getattr(state, name), name)
+            fields[name] = (getattr(state, name), name)
         for name in self.config.derived_names:
             tracer = name[len("column_integrated_"):]
-            out[name] = self._compute_domain(
-                _column_integral(getattr(state, tracer), state.delp),
-                tracer,
-            )
+            fields[name] = (
+                _column_integral(getattr(state, tracer), state.delp), tracer)
         for zs in self.config.z_select:
             for name in zs.names:
-                out[f"{name}_z{zs.level}"] = self._compute_domain(
-                    getattr(state, name)[..., zs.level], name
-                )
-        return on_root(to_host(out), self.ranks)
+                fields[f"{name}_z{zs.level}"] = (
+                    getattr(state, name)[..., zs.level], name)
+        out = on_root(to_host({key: a for key, (a, _) in fields.items()}),
+                      self.ranks)
+        if out is None:
+            return None
+        return {key: self._compute_domain(a, fields[key][1])
+                for key, a in out.items()}
 
     def _grid(self, grid_data) -> Optional[dict]:
         return on_root(_grid_arrays(grid_data), self.ranks)

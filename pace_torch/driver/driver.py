@@ -11,13 +11,14 @@ intermediate restarts; `cleanup` writes the performance report, the grid
 and the final restart.
 
 The configuration is the reference package's, key for key, so every yaml
-file it reads hydrates here.  A `mesh` layout `(t, 1, 1)` runs `t` ranks
-(processes started by `torchrun`, or by the caller with `multihost`), each
-owning `6 / t` whole tiles: each rank builds and steps its tiles, the halo
-updates exchange between ranks (parallel/halo.py `RankTopology`), and
-diagnostics, restarts and the performance report are gathered to rank 0
-and written once, the files of a one-rank run.  A layout that splits tiles
-along x or y raises `NotImplementedError` naming ROADMAP item 11b.
+file it reads hydrates here.  A `mesh` layout `(t, x, y)` runs `t x y`
+ranks (processes started by `torchrun`, or by the caller with
+`multihost`), each owning a box of `6 / t` tiles, `1 / x` of each along i
+and `1 / y` along j (parallel/partition.py; every box at least the halo's
+width): each rank builds and steps its block, the halo updates exchange
+between ranks (parallel/halo.py `RankTopology`), and diagnostics, restarts
+and the performance report are gathered to rank 0 and written once, the
+files of a one-rank run.
 """
 
 from __future__ import annotations
@@ -85,13 +86,10 @@ class MeshConfig:
     def build(self, n: int, halo: int, device):
         """Validate the layout and, for more than one rank, join (or start)
         the process group: returns (Partition, Comm), or None for one
-        rank.  x or y above 1 raises NotImplementedError."""
+        rank.  A layout whose boxes are narrower than the halo raises
+        ValueError before any process group is joined."""
         layout = check_layout(self.layout, self.dcn_mesh_shape)
-        if layout[1] > 1 or layout[2] > 1:
-            raise NotImplementedError(
-                f"mesh layout={list(layout)} splits tiles along x or y: the "
-                "port's ranks own whole tiles, layouts (t, 1, 1) with t in "
-                "{1, 2, 3, 6}; the x/y decomposition is ROADMAP item 11b")
+        Partition(layout, n, halo, self.dcn_mesh_shape)
         ranks = self.ranks
         if ranks == 1 and not self.multihost:
             return None
@@ -132,7 +130,7 @@ class DriverConfig:
         nx_tile: gridpoints per horizontal tile dimension
         nz: vertical levels
         dt_atmos: timestep (s)
-        mesh: rank layout (whole tiles per rank)
+        mesh: rank layout over (tile, x, y)
         grid_config: stretched-grid / eta-file options
         dtype: "float32" or "float64"
     """
@@ -265,7 +263,8 @@ class Driver:
                     self._ptop, config.dt_atmos, device=self.device,
                 )
                 self.dycore_to_physics = DycoreToPhysics(
-                    sizing, dtype=dtype, device=self.device)
+                    sizing, dtype=dtype, device=self.device,
+                    domain=self.dycore.domain)
                 self.end_of_step_update = UpdateAtmosphereState(
                     grid_data, self.dycore.topo, sizing, config.dt_atmos,
                     c2l_order=config.dycore_config.c2l_ord,
@@ -278,7 +277,8 @@ class Driver:
                 config.diagnostics_config.diagnostics_factory(
                     sizing, self.ranks)
             )
-            self.safety_checker = SafetyChecker(sizing, self.comm)
+            self.safety_checker = SafetyChecker(sizing, self.comm,
+                                                self.dycore.domain)
             if config.safety_check_frequency:
                 register_default_checks()
 

@@ -15,6 +15,7 @@ from typing import ClassVar, Dict, Optional
 
 import torch
 
+from pace_torch.utils.gridtools import Domain
 from pace_torch.utils.host import to_host
 
 
@@ -38,9 +39,14 @@ class SafetyChecker:
 
     checks: ClassVar[Dict[str, VariableBounds]] = {}
 
-    def __init__(self, sizing=None, comm=None):
+    def __init__(self, sizing=None, comm=None, domain=None):
+        """`domain`: the block of each tile the checked states hold (a
+        rank's, under a layout that splits tiles); the whole tile by
+        default."""
         self.sizing = sizing
         self.comm = comm
+        self.domain = domain or (Domain.whole(sizing.n, sizing.halo)
+                                 if sizing is not None else None)
 
     @classmethod
     def register_variable(cls, name: str,
@@ -65,9 +71,9 @@ class SafetyChecker:
                     f"Variable {variable} is not in the state"
                 )
             arr = getattr(state, variable)
-            if bounds.compute_domain_only and self.sizing is not None:
-                h, n = self.sizing.halo, self.sizing.n
-                arr = arr[:, h:h + n, h:h + n]
+            if bounds.compute_domain_only and self.domain is not None:
+                # the compute cells this rank owns
+                arr = arr[(slice(None),) + self.domain.compute()]
             # (min, -max): both reduce as minima over ranks
             extrema[variable] = torch.stack([arr.min(), -arr.max()])
         if self.comm is not None and extrema:

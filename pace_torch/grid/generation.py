@@ -87,10 +87,16 @@ def _fill_corners_vector_np(x, y, n, h, grid, vector=False):
 # Grid data bundles (tensors)
 # ---------------------------------------------------------------------------
 
+# The axis of the tile each (6, N) edge table runs along: j (2) on the west
+# and east edges, i (1) on the south and north ones.
+EDGE_TABLE_AXIS = {f"{kind}_{side}": 2 if side in "we" else 1
+                   for kind in ("edge", "edge_vect") for side in "wesn"}
+
+
 def _tensor_bundle(cls, arrays: dict, device, dtype, scatter=None):
     """Build a bundle dataclass: array fields become tensors on `device`
-    with `dtype`, cut by `scatter` where given; scalar fields stay Python
-    numbers."""
+    with `dtype`, cut by `scatter` where given (a (6, N) edge table along
+    its own axis); scalar fields stay Python numbers."""
     kw = {}
     for f in dataclasses.fields(cls):
         v = arrays[f.name]
@@ -98,8 +104,10 @@ def _tensor_bundle(cls, arrays: dict, device, dtype, scatter=None):
             kw[f.name] = type(0.0 if f.type == "float" else 0)(v)
         else:
             v = np.asarray(v)
-            kw[f.name] = torch.tensor(v if scatter is None else scatter(v),
-                                      dtype=dtype, device=device)
+            if scatter is not None:
+                v = (scatter(v, axis=EDGE_TABLE_AXIS[f.name]) if v.ndim == 2
+                     else scatter(v))
+            kw[f.name] = torch.tensor(v, dtype=dtype, device=device)
     return cls(**kw)
 
 
@@ -227,6 +235,24 @@ class GridData:
         }
         # the tensors' own device: "cuda" resolves to "cuda:<index>"
         return cls(**kw, device=kw["horizontal"].area.device, dtype=dtype)
+
+    def scattered(self, scatter) -> "GridData":
+        """This (whole cube's) grid cut by `scatter`
+        (`Partition.scatterer(rank)`), as `from_numpy` cuts it: contiguous
+        copies, as the kernels take them."""
+        def cut(bundle):
+            kw = {}
+            for f in dataclasses.fields(bundle):
+                v = getattr(bundle, f.name)
+                if isinstance(v, torch.Tensor):
+                    v = (scatter(v, axis=EDGE_TABLE_AXIS[f.name])
+                         if v.ndim == 2 else scatter(v)).contiguous()
+                kw[f.name] = v
+            return type(bundle)(**kw)
+
+        return dataclasses.replace(
+            self, horizontal=cut(self.horizontal), angle=cut(self.angle),
+            damping=cut(self.damping))
 
 
 # ---------------------------------------------------------------------------

@@ -47,7 +47,7 @@ def update_pressure_and_surface_winds(pe, delp, peln, pk, ua, va):
     return pe, peln, pk, ps, u_srf, v_srf
 
 
-def apply_physics_to_dycore(s: dict, u_dt, v_dt, t_dt, gd, topo, n, h,
+def apply_physics_to_dycore(s: dict, u_dt, v_dt, t_dt, gd, topo,
                             c2l_order, dt):
     """Mutates the dycore state dict s; returns (s, u_srf, v_srf).
     Mirrors ApplyPhysicsToDycore.__call__ (fv_update_phys.py:150-192)."""
@@ -62,10 +62,10 @@ def apply_physics_to_dycore(s: dict, u_dt, v_dt, t_dt, gd, topo, n, h,
         )
     )
     s["u"], s["v"] = update_dwind_phys(
-        s["u"], s["v"], u_dt, v_dt, gd, topo, n, h, dt
+        s["u"], s["v"], u_dt, v_dt, gd, topo, dt
     )
     ua, va, u, v = c2l_ord.cubed_to_latlon(
-        s["u"], s["v"], gd, topo, n, h, order=c2l_order
+        s["u"], s["v"], gd, topo, order=c2l_order
     )
     s["ua"], s["va"], s["u"], s["v"] = ua, va, u, v
     return s, u_srf, v_srf

@@ -22,14 +22,18 @@ import torch
 from pace_torch.models.coupler.fv_update_phys import apply_physics_to_dycore
 from pace_torch.models.physics.physics_state import PhysicsState
 from pace_torch.ops.stencil_utils import levels
+from pace_torch.utils.gridtools import Domain
 
 
-def interior_mask(N: int, n: int, h: int, device="cuda"):
-    """(1, N, N, 1) mask of the active cell-center columns."""
-    idx = np.arange(N)
-    cells = (idx >= h) & (idx < h + n)
-    return torch.as_tensor(
-        cells[:, None] & cells[None, :], device=device).reshape(1, N, N, 1)
+def interior_mask(dom, device="cuda"):
+    """(1, Ni, Nj, 1) mask of the active cell-center columns of `dom`'s
+    block (utils/gridtools.py Domain)."""
+    ci = np.arange(dom.Ni) + dom.i0
+    cj = np.arange(dom.Nj) + dom.j0
+    ci = (ci >= dom.h) & (ci < dom.h + dom.n)
+    cj = (cj >= dom.h) & (cj < dom.h + dom.n)
+    return torch.as_tensor(ci[:, None] & cj[None, :], device=device).reshape(
+        1, dom.Ni, dom.Nj, 1)
 
 
 def fill_gfs_delp(delp, q, q_min: float):
@@ -92,12 +96,14 @@ class DycoreToPhysics:
     on fv_sg_adj > 0)."""
 
     def __init__(self, sizing, dtype=torch.float32, dycore_only=False,
-                 device="cuda"):
+                 device="cuda", domain=None):
+        """`domain`: the block of each tile the states hold (a rank's, under
+        a layout that splits tiles); the whole tile by default."""
         self.sizing = sizing
         self.dycore_only = dycore_only
         self.device = torch.device(device)
-        self._mask = interior_mask(sizing.N, sizing.n, sizing.halo,
-                                   device=self.device)
+        domain = domain or Domain.whole(sizing.n, sizing.halo)
+        self._mask = interior_mask(domain, device=self.device)
         self.dtype = dtype
 
     def __call__(self, dycore_state, land=None) -> PhysicsState:
@@ -145,8 +151,7 @@ class UpdateAtmosphereState:
         if grid_data.device.type != self.device.type:
             raise ValueError(
                 f"grid data on {grid_data.device}, coupler on {self.device}")
-        self._mask = interior_mask(sizing.N, sizing.n, sizing.halo,
-                                   device=self.device)
+        self._mask = interior_mask(topo.domain, device=self.device)
 
     def __call__(self, dycore_state, phy_state: PhysicsState,
                  u_dt0=None, v_dt0=None, pt_dt0=None):
@@ -156,7 +161,6 @@ class UpdateAtmosphereState:
             f.name: getattr(dycore_state, f.name)
             for f in dataclasses.fields(dycore_state)
         }
-        n, h = self.sizing.n, self.sizing.halo
         m = self._mask
         if self.dycore_only:
             s["qvapor"] = torch.where(
@@ -190,7 +194,7 @@ class UpdateAtmosphereState:
 
         if self.apply_tendencies:
             s, u_srf, v_srf = apply_physics_to_dycore(
-                s, u_dt, v_dt, pt_dt, self.gd, self.topo, n, h,
+                s, u_dt, v_dt, pt_dt, self.gd, self.topo,
                 self.c2l_order, self.timestep,
             )
         return type(dycore_state)(**s)

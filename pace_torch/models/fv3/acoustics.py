@@ -55,11 +55,13 @@ def _p_grad_c(uc, vc, delpc, pkc, gz, gd, dt2):
 
 
 def acoustic_dynamics(
-    s: dict, cappa, gd, col, config, topo, n: int, h: int,
+    s: dict, cappa, gd, col, config, topo,
     timestep: float, n_map: int, wsd, vp: dict,
 ):
-    """Run n_split acoustic substeps. `s` is a dict holding the DycoreState
-    fields; returns (updated dict, cappa, wsd, heat_source diagnostics)."""
+    """Run n_split acoustic substeps on the fields of the block of
+    `topo.domain`. `s` is a dict holding the DycoreState fields; returns
+    (updated dict, cappa, wsd, heat_source diagnostics)."""
+    dom = topo.domain
     end_step = n_map == config.k_split
     akap = constants.KAPPA
     dt_acoustic = timestep / config.n_split
@@ -118,14 +120,14 @@ def acoustic_dynamics(
             pem = riemann.interfaces(ptop, s["delp"])
 
         # C-grid half step (reference dyn_core.py:626-646 _checkpoint_csw)
-        checkpoint("C_SW-In", sizing=(n, h), delp=s["delp"], pt=s["pt"],
+        checkpoint("C_SW-In", domain=dom, delp=s["delp"], pt=s["pt"],
                    u=s["u"], v=s["v"], w=s["w"], uc=s["uc"], vc=s["vc"])
         (delpc, ptc, s["uc"], s["vc"], s["ua"], s["va"], ut, vt, divgd,
          s["omga"], s["delp"], s["pt"], s["w"]) = c_sw_mod.c_sw(
             s["delp"], s["pt"], s["u"], s["v"], s["w"], s["omga"],
-            gd, n, h, dt2, config.nord,
+            gd, dom, dt2, config.nord,
         )
-        checkpoint("C_SW-Out", sizing=(n, h), delpc=delpc, ptc=ptc,
+        checkpoint("C_SW-Out", domain=dom, delpc=delpc, ptc=ptc,
                    uc=s["uc"], vc=s["vc"], ua=s["ua"], va=s["va"],
                    omga=s["omga"])
 
@@ -139,7 +141,7 @@ def acoustic_dynamics(
         gz, ws3 = updatedz.update_dz_c(
             torch.as_tensor(dp_ref_col, dtype=gz.dtype, device=gz.device),
             zs, gd.horizontal.area,
-            ut, vt, gz, n, h, dt2,
+            ut, vt, gz, dom, dt2,
         )
         gz, pkc = riemann.riem_solver_c(
             dt2, cappa, ptop, s["phis"], ws3, ptc, s["q_con"], delpc,
@@ -153,14 +155,14 @@ def acoustic_dynamics(
         )
 
         # D-grid full step (reference dyn_core.py:648-668 _checkpoint_dsw)
-        checkpoint("D_SW-In", sizing=(n, h), delp=s["delp"], pt=s["pt"],
+        checkpoint("D_SW-In", domain=dom, delp=s["delp"], pt=s["pt"],
                    u=s["u"], v=s["v"], w=s["w"], uc=s["uc"], vc=s["vc"],
                    divgd=divgd)
         out = d_sw_mod.d_sw(
             s["delp"], s["pt"], s["u"], s["v"], s["w"], s["uc"], s["vc"],
             s["ua"], s["va"], divgd, s["mfxd"], s["mfyd"], s["cxd"],
             s["cyd"], s["q_con"], heat_source, s["diss_estd"], ut, vt,
-            gd, col, config, n, h, dt_acoustic,
+            gd, col, config, dom, dt_acoustic,
         )
         s["delp"], s["pt"] = out["delp"], out["pt"]
         s["u"], s["v"], s["w"] = out["u"], out["v"], out["w"]
@@ -171,7 +173,7 @@ def acoustic_dynamics(
         crx, cry, xfx, yfx = out["crx"], out["cry"], out["xfx"], out["yfx"]
         delpc = out["delpc"]
         ut, vt = out["ut"], out["vt"]
-        checkpoint("D_SW-Out", sizing=(n, h), delp=s["delp"], pt=s["pt"],
+        checkpoint("D_SW-Out", domain=dom, delp=s["delp"], pt=s["pt"],
                    u=s["u"], v=s["v"], w=s["w"], mfxd=s["mfxd"],
                    mfyd=s["mfyd"])
 
@@ -180,7 +182,7 @@ def acoustic_dynamics(
         )
 
         zh, wsd = updatedzd.update_dz_d(
-            zs, zh, crx, cry, xfx, yfx, gd, col, config, n, h,
+            zs, zh, crx, cry, xfx, yfx, gd, col, config, dom,
             dt_acoustic, vp["dp_ref"],
         )
         (s["delz"], zh, s["pe"], pkc, pk3, s["pk"], s["peln"],
@@ -191,13 +193,13 @@ def acoustic_dynamics(
             last_call=remap_step,
         )
         if remap_step:
-            s["pe"] = nhpg.pe_halo(s["pe"], s["delp"], ptop, n, h)
-        pk3 = nhpg.pk3_halo(pk3, s["delp"], ptop, akap, n, h)
+            s["pe"] = nhpg.pe_halo(s["pe"], s["delp"], ptop, dom)
+        pk3 = nhpg.pk3_halo(pk3, s["delp"], ptop, akap, dom)
         zh, pkc = hupd(zh, pkc)
         gz = zh * constants.GRAV
 
         s["u"], s["v"], pkc, gz, pk3 = nhpg.nh_p_grad(
-            s["u"], s["v"], pkc, gz, pk3, s["delp"], gd, n, h,
+            s["u"], s["v"], pkc, gz, pk3, s["delp"], gd, dom,
             dt_acoustic, ptop, akap,
         )
 
@@ -222,7 +224,7 @@ def acoustic_dynamics(
         cd = constants.CNST_0P20 * gd.damping.da_min
         # only the first nk_heat levels receive diffusion + heating
         hs_part = heat_source[..., :nk_heat]
-        hs_part = hyperdiffusion(hs_part, gd, cd, n, h, nmax=3)
+        hs_part = hyperdiffusion(hs_part, gd, cd, dom, nmax=3)
         heat_source = torch.cat([hs_part, heat_source[..., nk_heat:]], -1)
         delt_time_factor = abs(dt_acoustic * config.delt_max)
         pt_new = nhpg.apply_diffusive_heating(

@@ -59,6 +59,8 @@ class DynamicalCore:
         self.timer = timer
         self.topo = (topology if topology is not None
                      else get_topology(sizing.n, sizing.halo))
+        # the block of each tile this rank's fields hold
+        self.domain = self.topo.domain
         self.column_namelist = get_column_namelist(config, sizing.nz)
         # in the grid's dtype, as the reference package computes them
         ak = grid_data.vertical.ak.detach().cpu().numpy()
@@ -76,15 +78,15 @@ class DynamicalCore:
                 f"{self.device}/{self.dtype}")
         return fv_dynamics(
             state, self.grid_data, self.column_namelist, self.config,
-            self.topo, self.sizing.n, self.sizing.halo, self.timestep,
+            self.topo, self.timestep,
             self.vertical_params, self.timer,
         )
 
 
-def _preamble(s: dict, config: DynamicalCoreConfig, n: int, h: int):
+def _preamble(s: dict, config: DynamicalCoreConfig, dom):
     """fv_setup + pt -> potential-density temperature."""
     # reference fv_dynamics.py:321-341 _checkpoint_fvdynamics
-    checkpoint("FVDynamics-In", sizing=(n, h), u=s["u"], v=s["v"], w=s["w"],
+    checkpoint("FVDynamics-In", domain=dom, u=s["u"], v=s["v"], w=s["w"],
                delp=s["delp"], pt=s["pt"], delz=s["delz"],
                qvapor=s["qvapor"])
     q_con, cvm, pkz, cappa, dp1 = moist_cv.fv_setup(
@@ -95,38 +97,40 @@ def _preamble(s: dict, config: DynamicalCoreConfig, n: int, h: int):
     s["q_con"] = q_con
     s["pkz"] = pkz
     s["pt"] = s["pt"] * (1.0 + dp1) * (1.0 - q_con) / pkz
-    nancheck("fv_setup", n, h, pt=s["pt"], q_con=q_con, pkz=pkz)
+    nancheck("fv_setup", dom, pt=s["pt"], q_con=q_con, pkz=pkz)
     wsd = torch.zeros_like(s["ps"])
     return s, cappa, wsd
 
 
-def _phase_tracer_advection(s: dict, dp_initial, gd, topo, n: int, h: int,
+def _phase_tracer_advection(s: dict, dp_initial, gd, topo,
                             config: DynamicalCoreConfig):
+    dom = topo.domain
     if not config.z_tracer:
         raise NotImplementedError("z_tracer=False")
     advected = {name: s[name] for name in TRACER_NAMES[:NQ]}
     # reference fv_dynamics.py:377-398 _checkpoint_tracer_advection
-    checkpoint("Tracer2D1L-In", sizing=(n, h), qvapor=advected["qvapor"],
+    checkpoint("Tracer2D1L-In", domain=dom, qvapor=advected["qvapor"],
                qliquid=advected["qliquid"], dp1=dp_initial,
                mfxd=s["mfxd"], mfyd=s["mfyd"])
     advected = tradv.tracer_advection(
         advected, dp_initial, s["mfxd"], s["mfyd"], s["cxd"],
-        s["cyd"], gd, topo, n, h, config.hord_tr,
+        s["cyd"], gd, topo, config.hord_tr,
         dynamic_subcycle=config.dynamic_tracer_subcycle,
     )
     s.update(advected)
-    nancheck("tracer_advection", n, h,
+    nancheck("tracer_advection", dom,
              **{k: advected[k] for k in list(advected)[:3]})
-    checkpoint("Tracer2D1L-Out", sizing=(n, h), qvapor=s["qvapor"],
+    checkpoint("Tracer2D1L-Out", domain=dom, qvapor=s["qvapor"],
                qliquid=s["qliquid"], mfxd=s["mfxd"], mfyd=s["mfyd"])
     return s
 
 
 def _phase_remap(s: dict, cappa, wsd, gd, config: DynamicalCoreConfig,
-                 topo, n: int, h: int, last_step: bool, mdt: float,
-                 vp: dict):
+                 topo, last_step: bool, mdt: float, vp: dict):
     """Vertical remapping + (last step) omega."""
-    checkpoint("Remapping-In", sizing=(n, h), pt=s["pt"], delp=s["delp"],
+    dom = topo.domain
+    n, h = dom.n, dom.h
+    checkpoint("Remapping-In", domain=dom, pt=s["pt"], delp=s["delp"],
                delz=s["delz"], u=s["u"], v=s["v"], w=s["w"])
     tracers = {name: s[name] for name in remapping.REMAP_TRACERS}
     sat_fn = None
@@ -149,9 +153,9 @@ def _phase_remap(s: dict, cappa, wsd, gd, config: DynamicalCoreConfig,
                  "pkz", "pk", "pe", "ps"):
         s[name] = out[name]
     cappa = out["cappa"]
-    checkpoint("Remapping-Out", sizing=(n, h), pt=s["pt"], delp=s["delp"],
+    checkpoint("Remapping-Out", domain=dom, pt=s["pt"], delp=s["delp"],
                delz=s["delz"], u=s["u"], v=s["v"], w=s["w"])
-    nancheck("lagrangian_to_eulerian", n, h, pt=s["pt"],
+    nancheck("lagrangian_to_eulerian", dom, pt=s["pt"],
              delp=s["delp"], u=s["u"], v=s["v"], w=s["w"], pkz=s["pkz"])
 
     if last_step:
@@ -162,27 +166,28 @@ def _phase_remap(s: dict, cappa, wsd, gd, config: DynamicalCoreConfig,
                 s["omga"], topo.scalar_spec("center")
             )
             s["omga"] = hyperdiffusion(
-                s["omga"], gd, 0.18 * gd.damping.da_min, n, h,
+                s["omga"], gd, 0.18 * gd.damping.da_min, dom,
                 nmax=config.nf_omega,
             )
     return s, cappa
 
 
-def _postlude(s: dict, gd, topo, n: int, h: int,
+def _postlude(s: dict, gd, topo,
               config: DynamicalCoreConfig) -> DycoreState:
     """Negative-tracer adjustment + D-grid -> lat/lon A-grid winds."""
+    dom = topo.domain
     tracers = {name: s[name] for name in remapping.REMAP_TRACERS}
     tracers, s["pt"] = neg_adj3.adjust_negative_tracers(
         tracers, s["pt"], s["delp"]
     )
     s.update(tracers)
     ua, va, u, v = c2l_ord.cubed_to_latlon(
-        s["u"], s["v"], gd, topo, n, h, order=config.c2l_ord
+        s["u"], s["v"], gd, topo, order=config.c2l_ord
     )
     s["ua"], s["va"] = ua, va
     s["u"], s["v"] = u, v
-    nancheck("cubed_to_latlon", n, h, ua=ua, va=va, pt=s["pt"])
-    checkpoint("FVDynamics-Out", sizing=(n, h), u=s["u"], v=s["v"],
+    nancheck("cubed_to_latlon", dom, ua=ua, va=va, pt=s["pt"])
+    checkpoint("FVDynamics-Out", domain=dom, u=s["u"], v=s["v"],
                w=s["w"], delp=s["delp"], pt=s["pt"], delz=s["delz"],
                qvapor=s["qvapor"])
     return DycoreState(**s)
@@ -190,29 +195,31 @@ def _postlude(s: dict, gd, topo, n: int, h: int,
 
 def fv_dynamics(
     state: DycoreState, gd, col, config: DynamicalCoreConfig, topo,
-    n: int, h: int, timestep: float, vp: dict, timer=None,
+    timestep: float, vp: dict, timer=None,
 ) -> DycoreState:
+    """One dycore step of the fields of the block of `topo.domain`
+    (utils/gridtools.py Domain: the whole tile, or a rank's part of it)."""
+    dom = topo.domain
     def section(name):
         return (timer.clock(name) if timer is not None
                 else contextlib.nullcontext())
 
     s = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
-    s, cappa, wsd = _preamble(s, config, n, h)
+    s, cappa, wsd = _preamble(s, config, dom)
     k_split = config.k_split
     mdt = timestep / k_split
     for k_loop in range(k_split):
         dp_initial = s["delp"]
         with section("DynCore"):
             s, cappa, wsd, _pem = acoustics.acoustic_dynamics(
-                s, cappa, gd, col, config, topo, n, h, mdt, k_loop + 1, wsd,
+                s, cappa, gd, col, config, topo, mdt, k_loop + 1, wsd,
                 vp,
             )
-            nancheck("acoustic_dynamics", n, h, u=s["u"], v=s["v"],
+            nancheck("acoustic_dynamics", dom, u=s["u"], v=s["v"],
                      w=s["w"], delp=s["delp"], pt=s["pt"], delz=s["delz"])
         with section("TracerAdvection"):
-            s = _phase_tracer_advection(s, dp_initial, gd, topo, n, h,
-                                        config)
+            s = _phase_tracer_advection(s, dp_initial, gd, topo, config)
         with section("Remapping"):
-            s, cappa = _phase_remap(s, cappa, wsd, gd, config, topo, n, h,
+            s, cappa = _phase_remap(s, cappa, wsd, gd, config, topo,
                                     k_loop == k_split - 1, mdt, vp)
-    return _postlude(s, gd, topo, n, h, config)
+    return _postlude(s, gd, topo, config)

@@ -6,7 +6,9 @@ tendency dict as `Microphysics.__call__`, so it is interchangeable in the
 physics driver and in the coupled step.
 
 - each layer is one (..., features) @ (features, hidden) product over the
-  column features with the (tile, x, y) batch dims kept intact;
+  column features with the (tile, x, y) batch dims kept intact; the
+  columns go through it in blocks of a fixed row count (`BLOCK_ROWS`), so
+  that a column's result does not depend on how many columns a rank holds;
 - the compute dtype is configurable: bfloat16 halves the traffic of the
   weights and activations; the conservation fix-up is always applied in the
   state dtype;
@@ -44,6 +46,13 @@ OUTPUT_FIELDS = (
 )
 # water-species tendencies subject to the conservation projection
 WATER_TENDENCIES = ("qv_dt", "ql_dt", "qr_dt", "qi_dt", "qs_dt", "qg_dt")
+
+# Rows of every matrix product.  cuBLAS, like a CPU BLAS, picks its kernel
+# from the product's shape, and kernels sum a row's products in different
+# orders: an NVIDIA H100 ran a rank's 9,075 columns and one process's
+# 64,896 (C96) to bfloat16 results apart.  A fixed row count gives every
+# column the same kernel, whatever the tensor's size.
+BLOCK_ROWS = 4096
 
 # fixed per-field normalization scales (typical magnitudes; the network
 # sees O(1) inputs)
@@ -135,10 +144,7 @@ class MicrophysicsEmulator(nn.Module):
     def device(self) -> torch.device:
         return self.weights["w0"].device
 
-    def _forward(self, x):
-        """x: (..., nz*F) normalized features -> (..., nz*T) normalized
-        tendencies; leading dims are kept intact."""
-        h = x.to(self._compute_dtype)
+    def _layers(self, h):
         for i in range(self._n_layers):
             w = self.weights[f"w{i}"].to(self._compute_dtype)
             b = self.weights[f"b{i}"].to(self._compute_dtype)
@@ -146,6 +152,20 @@ class MicrophysicsEmulator(nn.Module):
             if i < self._n_layers - 1:
                 h = F.gelu(h, approximate="tanh")
         return h
+
+    def _forward(self, x):
+        """x: (..., nz*F) normalized features -> (..., nz*T) normalized
+        tendencies; leading dims are kept intact.  The rows go through the
+        layers BLOCK_ROWS at a time, the last block padded with zeros."""
+        h = x.to(self._compute_dtype)
+        rows = h.reshape(-1, h.shape[-1])
+        count = rows.shape[0]
+        padded = rows.new_zeros((-(-count // BLOCK_ROWS) * BLOCK_ROWS,
+                                 rows.shape[1]))
+        padded[:count] = rows
+        out = torch.cat([self._layers(block)
+                         for block in padded.split(BLOCK_ROWS)])
+        return out[:count].reshape(h.shape[:-1] + out.shape[-1:])
 
     @torch.no_grad()
     def forward(self, state) -> dict:

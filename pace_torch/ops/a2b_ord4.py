@@ -58,12 +58,13 @@ def _set_point(q, i, j, value):
     return out
 
 
-def a2b_ord4(qin: torch.Tensor, gd, n: int, h: int) -> torch.Tensor:
+def a2b_ord4(qin: torch.Tensor, gd, dom) -> torch.Tensor:
     """Interpolate a cell-centered field to cell corners (B grid).
 
     Valid on corner points [h, h+n] in both directions (the full tile
     interface grid); outside that the output is unspecified.
     """
+    n, h = dom.n, dom.h
     hz = gd.horizontal
     lon, lat = hz.lon, hz.lat
     lon_a, lat_a = hz.lon_agrid, hz.lat_agrid
@@ -73,26 +74,23 @@ def a2b_ord4(qin: torch.Tensor, gd, n: int, h: int) -> torch.Tensor:
     qout = torch.zeros_like(qin)
 
     # --- four cube corners (reference _sw/_nw/_ne/_se corner stencils) ----
-    # at (h, h):
-    qout = _set_point(qout, h, h, _corner_value(
-        qin, lon, lat, lon_a, lat_a, h, h,
-        [((0, 0), (1, 1)), ((-1, 0), (-2, 1)), ((0, -1), (1, -2))],
-    ))
-    # at (h+n, h):
-    qout = _set_point(qout, h + n, h, _corner_value(
-        qin, lon, lat, lon_a, lat_a, h + n, h,
-        [((-1, 0), (-2, 1)), ((-1, -1), (-2, -2)), ((0, 0), (1, 1))],
-    ))
-    # at (h+n, h+n):
-    qout = _set_point(qout, h + n, h + n, _corner_value(
-        qin, lon, lat, lon_a, lat_a, h + n, h + n,
-        [((-1, -1), (-2, -2)), ((0, -1), (1, -2)), ((-1, 0), (-2, 1))],
-    ))
-    # at (h, h+n):
-    qout = _set_point(qout, h, h + n, _corner_value(
-        qin, lon, lat, lon_a, lat_a, h, h + n,
-        [((0, -1), (1, -2)), ((-1, -1), (-2, -2)), ((0, 0), (1, 1))],
-    ))
+    # each where the block holds the corner and the cells it reads
+    for ci, cj, offsets in (
+        (h, h, [((0, 0), (1, 1)), ((-1, 0), (-2, 1)), ((0, -1), (1, -2))]),
+        (h + n, h,
+         [((-1, 0), (-2, 1)), ((-1, -1), (-2, -2)), ((0, 0), (1, 1))]),
+        (h + n, h + n,
+         [((-1, -1), (-2, -2)), ((0, -1), (1, -2)), ((-1, 0), (-2, 1))]),
+        (h, h + n,
+         [((0, -1), (1, -2)), ((-1, -1), (-2, -2)), ((0, 0), (1, 1))]),
+    ):
+        li, lj = dom.col(ci), dom.row(cj)
+        if (li is None or lj is None or dom.col(ci - 2) is None
+                or dom.col(ci + 1) is None or dom.row(cj - 2) is None
+                or dom.row(cj + 1) is None):
+            continue
+        qout = _set_point(qout, li, lj, _corner_value(
+            qin, lon, lat, lon_a, lat_a, li, lj, offsets))
     tmp_edges = qout
 
     # --- tile-edge B points (qout_x_edge / qout_y_edge) --------------------
@@ -101,23 +99,23 @@ def a2b_ord4(qin: torch.Tensor, gd, n: int, h: int) -> torch.Tensor:
     q2 = (shift(qin, -1) * dxa + qin * shift(dxa, -1)) / (shift(dxa, -1) + dxa)
     ew = hz.edge_w[:, None, :, None]  # (6, 1, N, 1), along j
     val = ew * shift(q2, 0, -1) + (1.0 - ew) * q2
-    qout = su.upd_point(qout, val, h, jm)
+    qout = su.upd_point(dom, qout, val, h, jm)
     ee = hz.edge_e[:, None, :, None]
     val = ee * shift(q2, 0, -1) + (1.0 - ee) * q2
-    qout = su.upd_point(qout, val, h + n, jm)
+    qout = su.upd_point(dom, qout, val, h + n, jm)
     # south (j = h)
     q1 = (shift(qin, 0, -1) * dya + qin * shift(dya, 0, -1)) / (
         shift(dya, 0, -1) + dya
     )
     es = hz.edge_s[:, :, None, None]
     val = es * shift(q1, -1) + (1.0 - es) * q1
-    qout = su.upd_point(qout, val, jm, h)
+    qout = su.upd_point(dom, qout, val, jm, h)
     en = hz.edge_n[:, :, None, None]
     val = en * shift(q1, -1) + (1.0 - en) * q1
-    qout = su.upd_point(qout, val, jm, h + n)
-    tmp_edges = su.upd_cols(tmp_edges, qout, h, h + n)
-    tmp_edges = su.upd_rows(tmp_edges, qout, h)
-    tmp_edges = su.upd_rows(tmp_edges, qout, h + n)
+    qout = su.upd_point(dom, qout, val, jm, h + n)
+    tmp_edges = su.upd_cols(dom, tmp_edges, qout, h, h + n)
+    tmp_edges = su.upd_rows(dom, tmp_edges, qout, h)
+    tmp_edges = su.upd_rows(dom, tmp_edges, qout, h + n)
 
     # --- PPM volume means on interfaces (qx, qy) ---------------------------
     qx = B2 * (shift(qin, -2) + shift(qin, 1)) + B1 * (shift(qin, -1) + qin)
@@ -128,7 +126,7 @@ def a2b_ord4(qin: torch.Tensor, gd, n: int, h: int) -> torch.Tensor:
         ((2.0 + g_in) * qin - shift(qin, 1)) / (1.0 + g_in)
         + ((2.0 + g_ou) * shift(qin, -1) - shift(qin, -2)) / (1.0 + g_ou)
     )
-    qx = su.upd_cols(qx, qx_w, h)
+    qx = su.upd_cols(dom, qx, qx_w, h)
     g_in2 = dxa / shift(dxa, -1)
     g_ou2 = shift(dxa, -3) / shift(dxa, -2)
     qxleft = 0.5 * (
@@ -139,14 +137,14 @@ def a2b_ord4(qin: torch.Tensor, gd, n: int, h: int) -> torch.Tensor:
     qx_w2 = (
         3.0 * (g_in2 * shift(qin, -1) + qin) - (g_in2 * qxleft + qxright)
     ) / (2.0 + 2.0 * g_in2)
-    qx = su.upd_cols(qx, qx_w2, h + 1)
+    qx = su.upd_cols(dom, qx, qx_w2, h + 1)
     g_in = shift(dxa, -2) / shift(dxa, -1)
     g_ou = shift(dxa, 1) / dxa
     qx_e = 0.5 * (
         ((2.0 + g_in) * shift(qin, -1) - shift(qin, -2)) / (1.0 + g_in)
         + ((2.0 + g_ou) * qin - shift(qin, 1)) / (1.0 + g_ou)
     )
-    qx = su.upd_cols(qx, qx_e, h + n)
+    qx = su.upd_cols(dom, qx, qx_e, h + n)
     g_in2 = shift(dxa, -1) / dxa
     g_ou2 = shift(dxa, 2) / shift(dxa, 1)
     qxright2 = 0.5 * (
@@ -157,7 +155,7 @@ def a2b_ord4(qin: torch.Tensor, gd, n: int, h: int) -> torch.Tensor:
     qx_e2 = (
         3.0 * (shift(qin, -1) + g_in2 * qin) - (g_in2 * qxright2 + qxleft2)
     ) / (2.0 + 2.0 * g_in2)
-    qx = su.upd_cols(qx, qx_e2, h + n - 1)
+    qx = su.upd_cols(dom, qx, qx_e2, h + n - 1)
 
     qy = B2 * (shift(qin, 0, -2) + shift(qin, 0, 1)) + B1 * (shift(qin, 0, -1) + qin)
     g_in = shift(dya, 0, 1) / dya
@@ -166,7 +164,7 @@ def a2b_ord4(qin: torch.Tensor, gd, n: int, h: int) -> torch.Tensor:
         ((2.0 + g_in) * qin - shift(qin, 0, 1)) / (1.0 + g_in)
         + ((2.0 + g_ou) * shift(qin, 0, -1) - shift(qin, 0, -2)) / (1.0 + g_ou)
     )
-    qy = su.upd_rows(qy, qy_s, h)
+    qy = su.upd_rows(dom, qy, qy_s, h)
     g_in2 = dya / shift(dya, 0, -1)
     g_ou2 = shift(dya, 0, -3) / shift(dya, 0, -2)
     qy_lower = 0.5 * (
@@ -179,14 +177,14 @@ def a2b_ord4(qin: torch.Tensor, gd, n: int, h: int) -> torch.Tensor:
     qy_s2 = (
         3.0 * (g_in2 * shift(qin, 0, -1) + qin) - (g_in2 * qy_lower + qy_upper)
     ) / (2.0 + 2.0 * g_in2)
-    qy = su.upd_rows(qy, qy_s2, h + 1)
+    qy = su.upd_rows(dom, qy, qy_s2, h + 1)
     g_in = shift(dya, 0, -2) / shift(dya, 0, -1)
     g_ou = shift(dya, 0, 1) / dya
     qy_n = 0.5 * (
         ((2.0 + g_in) * shift(qin, 0, -1) - shift(qin, 0, -2)) / (1.0 + g_in)
         + ((2.0 + g_ou) * qin - shift(qin, 0, 1)) / (1.0 + g_ou)
     )
-    qy = su.upd_rows(qy, qy_n, h + n)
+    qy = su.upd_rows(dom, qy, qy_n, h + n)
     g_in2 = shift(dya, 0, -1) / dya
     g_ou2 = shift(dya, 0, 2) / shift(dya, 0, 1)
     qy_lower2 = B2 * (shift(qin, 0, -3) + qin) + B1 * (
@@ -199,7 +197,7 @@ def a2b_ord4(qin: torch.Tensor, gd, n: int, h: int) -> torch.Tensor:
     qy_n2 = (
         3.0 * (shift(qin, 0, -1) + g_in2 * qin) - (g_in2 * qy_upper2 + qy_lower2)
     ) / (2.0 + 2.0 * g_in2)
-    qy = su.upd_rows(qy, qy_n2, h + n - 1)
+    qy = su.upd_rows(dom, qy, qy_n2, h + n - 1)
 
     # --- interior interpolation (a2b_interpolation) -------------------------
     qxx = A2 * (shift(qx, 0, -2) + shift(qx, 0, 1)) + A1 * (shift(qx, 0, -1) + qx)
@@ -207,19 +205,19 @@ def a2b_ord4(qin: torch.Tensor, gd, n: int, h: int) -> torch.Tensor:
     # row/column adjacent to tile edges use the compact form w/ edge values
     qxx_upper = A2 * (shift(qx, 0, -1) + shift(qx, 0, 2)) + A1 * (qx + shift(qx, 0, 1))
     qxx_j1 = C1 * (shift(qx, 0, -1) + qx) + C2 * (shift(tmp_edges, 0, -1) + qxx_upper)
-    qxx = su.upd_rows(qxx, qxx_j1, h + 1)
+    qxx = su.upd_rows(dom, qxx, qxx_j1, h + 1)
     qxx_lower = A2 * (shift(qx, 0, -3) + qx) + A1 * (shift(qx, 0, -2) + shift(qx, 0, -1))
     qxx_jn = C1 * (shift(qx, 0, -1) + qx) + C2 * (shift(tmp_edges, 0, 1) + qxx_lower)
-    qxx = su.upd_rows(qxx, qxx_jn, h + n - 1)
+    qxx = su.upd_rows(dom, qxx, qxx_jn, h + n - 1)
     qyy_right = A2 * (shift(qy, -1) + shift(qy, 2)) + A1 * (qy + shift(qy, 1))
     qyy_i1 = C1 * (shift(qy, -1) + qy) + C2 * (shift(tmp_edges, -1) + qyy_right)
-    qyy = su.upd_cols(qyy, qyy_i1, h + 1)
+    qyy = su.upd_cols(dom, qyy, qyy_i1, h + 1)
     qyy_left = A2 * (shift(qy, -3) + qy) + A1 * (shift(qy, -2) + shift(qy, -1))
     qyy_in = C1 * (shift(qy, -1) + qy) + C2 * (shift(tmp_edges, 1) + qyy_left)
-    qyy = su.upd_cols(qyy, qyy_in, h + n - 1)
+    qyy = su.upd_cols(dom, qyy, qyy_in, h + n - 1)
 
     interior = 0.5 * (qxx + qyy)
     qout = set_region(
-        qout, slice(h + 1, h + n), slice(h + 1, h + n), interior
+        dom, qout, slice(h + 1, h + n), slice(h + 1, h + n), interior
     )
     return qout

@@ -14,8 +14,11 @@ C1 = 1.125
 C2 = -0.125
 
 
-def cubed_to_latlon(u, v, gd, topo, n, h, order: int = 4, do_halo=True):
-    """Returns (ua, va) lat/lon winds at cell centers."""
+def cubed_to_latlon(u, v, gd, topo, order: int = 4, do_halo=True):
+    """Returns (ua, va) lat/lon winds at cell centers of the block of
+    `topo.domain`."""
+    dom = topo.domain
+    n, h = dom.n, dom.h
     hz = gd.horizontal
     dx = hz.dx[..., None]
     dy = hz.dy[..., None]
@@ -38,11 +41,11 @@ def cubed_to_latlon(u, v, gd, topo, n, h, order: int = 4, do_halo=True):
     u2 = 2.0 * (u * dx + shift(u, 0, 1) * shift(dx, 0, 1)) / (dx + shift(dx, 0, 1))
     v2 = 2.0 * (v * dy + shift(v, 1) * shift(dy, 1)) / (dy + shift(dy, 1))
     for j in (h, h + n - 1):
-        utmp = su.upd_rows(utmp, u2, j)
-        vtmp = su.upd_rows(vtmp, v2, j)
+        utmp = su.upd_rows(dom, utmp, u2, j)
+        vtmp = su.upd_rows(dom, vtmp, v2, j)
     for i in (h, h + n - 1):
-        utmp = su.upd_cols(utmp, u2, i)
-        vtmp = su.upd_cols(vtmp, v2, i)
+        utmp = su.upd_cols(dom, utmp, u2, i)
+        vtmp = su.upd_cols(dom, vtmp, v2, i)
     ua = a11 * utmp + a12 * vtmp
     va = a21 * utmp + a22 * vtmp
     return ua, va, u, v

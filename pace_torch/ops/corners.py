@@ -7,9 +7,12 @@ the corner, in the direction the next stencil will difference.
 
 Port of `pace_tpu.ops.corners` (reference ai2cm/pace
 stencils/pace/stencils/corners.py).  The index tables are the numpy tables
-of the reference package, unchanged; each fill is one whole-array gather
-(plus a masked select for the signed variants) with the tables moved to
-the tensor's device once.
+of the reference package, unchanged, in the tile's storage coordinates;
+each fill is one whole-array gather (plus a masked select for the signed
+variants) with the tables moved to the tensor's device once.  On a rank's
+block (`Domain`, utils/gridtools.py) a table keeps the points whose target
+and source the block holds, in its local indices: only a rank whose block
+holds a tile corner fills it.
 """
 
 from __future__ import annotations
@@ -64,26 +67,43 @@ def _copy_corners_table(n: int, h: int, direction: str):
     return _as_index_arrays(pairs)
 
 
-def _as_permutation(N: int, table):
-    """Expand a sparse (target <- source) table into full (N, N) gather maps
-    (identity outside the wedges)."""
-    ti, tj, si, sj = table
+def _restrict(dom, ti, tj, si, sj, *extra):
+    """The entries of a (target <- source) table whose target and source
+    `dom`'s block holds, in its local indices.  A rank whose box holds a
+    tile corner holds every entry of that corner (each source lies within
+    the halo's width of it); a target held without its source lies at the
+    block's margin, as far from the box as the held halo is deep."""
+    ti, tj = ti - dom.i0, tj - dom.j0
+    si, sj = si - dom.i0, sj - dom.j0
+    keep = ((ti >= 0) & (ti < dom.Ni) & (tj >= 0) & (tj < dom.Nj)
+            & (si >= 0) & (si < dom.Ni) & (sj >= 0) & (sj < dom.Nj))
+    return (ti[keep], tj[keep], si[keep], sj[keep]) + tuple(
+        e[keep] for e in extra)
+
+
+def _identity(dom):
     SI, SJ = np.meshgrid(
-        np.arange(N, dtype=np.int32), np.arange(N, dtype=np.int32),
+        np.arange(dom.Ni, dtype=np.int32), np.arange(dom.Nj, dtype=np.int32),
         indexing="ij",
     )
-    SI = SI.copy()
-    SJ = SJ.copy()
+    return SI.copy(), SJ.copy()
+
+
+def _as_permutation(dom, table):
+    """Expand a sparse (target <- source) table into full (Ni, Nj) gather
+    maps of `dom`'s block (identity outside the wedges)."""
+    ti, tj, si, sj = _restrict(dom, *table)
+    SI, SJ = _identity(dom)
     SI[ti, tj] = si
     SJ[ti, tj] = sj
     return SI, SJ
 
 
 @functools.lru_cache(maxsize=None)
-def copy_corners_perm(n: int, h: int, N: int, direction: str):
-    """Full (N, N) permutation maps for copy_corners (for composing with
-    halo-exchange gathers)."""
-    return _as_permutation(N, _copy_corners_table(n, h, direction))
+def copy_corners_perm(dom, direction: str):
+    """Full (Ni, Nj) permutation maps of `dom`'s block for copy_corners
+    (also composed with the halo-exchange gathers, on the whole tile)."""
+    return _as_permutation(dom, _copy_corners_table(dom.n, dom.h, direction))
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,9 +141,9 @@ def _fill_corners_2d_table(n: int, h: int, gridtype: str, direction: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _fill_corners_2d_perm(n: int, h: int, N: int, gridtype: str,
-                          direction: str):
-    return _as_permutation(N, _fill_corners_2d_table(n, h, gridtype, direction))
+def _fill_corners_2d_perm(dom, gridtype: str, direction: str):
+    return _as_permutation(
+        dom, _fill_corners_2d_table(dom.n, dom.h, gridtype, direction))
 
 
 @functools.lru_cache(maxsize=None)
@@ -192,21 +212,18 @@ def _fill_corners_vector_tables(n: int, h: int, grid: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _fill_corners_vector_perm(n: int, h: int, N: int, grid: str):
-    """Full (N, N) gather maps for fill_corners_vector: per target array,
+def _fill_corners_vector_perm(dom, grid: str):
+    """Full (Ni, Nj) gather maps for fill_corners_vector: per target array,
     (SI, SJ) source indices (identity outside wedges), SA source-component
     selector, SG sign flag, and the wedge mask."""
-    tables = _fill_corners_vector_tables(n, h, grid)
+    tables = _fill_corners_vector_tables(dom.n, dom.h, grid)
     out = {}
-    for tgt_arr, (ti, tj, si, sj, sa, sg) in tables.items():
-        SI, SJ = np.meshgrid(
-            np.arange(N, dtype=np.int32), np.arange(N, dtype=np.int32),
-            indexing="ij",
-        )
-        SI, SJ = SI.copy(), SJ.copy()
-        SA = np.zeros((N, N), np.int32)
-        SG = np.zeros((N, N), np.int32)
-        MASK = np.zeros((N, N), bool)
+    for tgt_arr, table in tables.items():
+        ti, tj, si, sj, sa, sg = _restrict(dom, *table)
+        SI, SJ = _identity(dom)
+        SA = np.zeros((dom.Ni, dom.Nj), np.int32)
+        SG = np.zeros((dom.Ni, dom.Nj), np.int32)
+        MASK = np.zeros((dom.Ni, dom.Nj), bool)
         SI[ti, tj] = si
         SJ[ti, tj] = sj
         SA[ti, tj] = sa
@@ -244,15 +261,11 @@ def _fill_corners_cells_table(n: int, h: int, direction: str, ncells: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _fill_corners_cells_perm(n: int, h: int, N: int, direction: str,
-                             ncells: int):
-    ti, tj, si, sj, cid = _fill_corners_cells_table(n, h, direction, ncells)
-    SI, SJ = np.meshgrid(
-        np.arange(N, dtype=np.int32), np.arange(N, dtype=np.int32),
-        indexing="ij",
-    )
-    SI, SJ = SI.copy(), SJ.copy()
-    CID = np.full((N, N), -1, np.int32)
+def _fill_corners_cells_perm(dom, direction: str, ncells: int):
+    ti, tj, si, sj, cid = _restrict(dom, *_fill_corners_cells_table(
+        dom.n, dom.h, direction, ncells))
+    SI, SJ = _identity(dom)
+    CID = np.full((dom.Ni, dom.Nj), -1, np.int32)
     SI[ti, tj] = si
     SJ[ti, tj] = sj
     CID[ti, tj] = cid
@@ -277,26 +290,26 @@ def _to_device_array(a, device):
     return torch.as_tensor(a, device=device)
 
 
-def copy_corners(q: torch.Tensor, n: int, h: int, direction: str):
-    """Fortran copy_corners_x / copy_corners_y on a (6, N, N, ...) field."""
-    SI, SJ = _on_device(("copy", (n, h, q.shape[1], direction)), q.device)
+def copy_corners(q: torch.Tensor, dom, direction: str):
+    """Fortran copy_corners_x / copy_corners_y on a (tiles, Ni, Nj, ...)
+    field."""
+    SI, SJ = _on_device(("copy", (dom, direction)), q.device)
     return q[:, SI, SJ]
 
 
-def fill_corners_2d(q, n: int, h: int, gridtype: str, direction: str = "x"):
-    SI, SJ = _on_device(
-        ("2d", (n, h, q.shape[1], gridtype, direction)), q.device)
+def fill_corners_2d(q, dom, gridtype: str, direction: str = "x"):
+    SI, SJ = _on_device(("2d", (dom, gridtype, direction)), q.device)
     return q[:, SI, SJ]
 
 
-def fill_corners_vector(x, y, n: int, h: int, grid: str,
+def fill_corners_vector(x, y, dom, grid: str,
                         vector: bool = True) -> Tuple[torch.Tensor, ...]:
     """Fill corner wedges of a staggered vector pair (A/C/D grid).
 
     With vector=True, entries crossing an odd number of reflections get a
     sign flip (reference `mysign=-1`); vector=False is used for unsigned
     metric pairs like (dx, dy)."""
-    perms = _on_device(("vector", (n, h, x.shape[1], grid)), x.device)
+    perms = _on_device(("vector", (dom, grid)), x.device)
     mysign = -1.0 if vector else 1.0
     extra = (1,) * (x.ndim - 3)
     outs = []
@@ -314,13 +327,12 @@ def fill_corners_vector(x, y, n: int, h: int, grid: str,
     return outs[0], outs[1]
 
 
-def fill_corners_cells(q, q_corner, n: int, h: int, direction: str,
+def fill_corners_cells(q, q_corner, dom, direction: str,
                        ncells: int, sw_mult=1.0, se_mult=1.0, nw_mult=1.0,
                        ne_mult=1.0):
     """fill_corners_{2,3}cells_mult_{x,y}: write rotated companion-field data
     into `ncells` corner halo cells of q."""
-    SI, SJ, CID = _on_device(
-        ("cells", (n, h, q.shape[1], direction, ncells)), q.device)
+    SI, SJ, CID = _on_device(("cells", (dom, direction, ncells)), q.device)
     extra = (1,) * (q.ndim - 3)
     mult = torch.ones(CID.shape, dtype=q.dtype, device=q.device)
     for c, m in enumerate((sw_mult, se_mult, nw_mult, ne_mult)):
@@ -331,8 +343,8 @@ def fill_corners_cells(q, q_corner, n: int, h: int, direction: str,
     return torch.where(mask, mm * q_corner[:, SI, SJ], q)
 
 
-def fill_corners_dgrid(x, y, n, h, vector=True):
-    return fill_corners_vector(x, y, n, h, "D", vector)
+def fill_corners_dgrid(x, y, dom, vector=True):
+    return fill_corners_vector(x, y, dom, "D", vector)
 
 
 _TABLE_BUILDERS = {

@@ -46,11 +46,12 @@ def _edge_interpolate4_y(va, dya):
     return 0.5 * (n1 / t1 + n2 / t2)
 
 
-def d2a2c_vect(u, v, gd, n: int, h: int):
+def d2a2c_vect(u, v, gd, dom):
     """Returns (uc, vc, ua, va, ut, vt).
 
     ut/vt are the contravariant C-grid winds (utc/vtc in the reference).
     """
+    n, h = dom.n, dom.h
     hz, ang = gd.horizontal, gd.angle
     cosa_s = ang.cosa_s[..., None]
     rsin2 = ang.rsin2[..., None]
@@ -74,42 +75,42 @@ def d2a2c_vect(u, v, gd, n: int, h: int):
     vtmp = torch.full_like(v, BIG_NUMBER)
     u_avg = 0.5 * (u + sh(u, 0, 1))
     v_avg = 0.5 * (v + sh(v, 1, 0))
-    utmp = su.set_region(utmp, slice(0, h + n + h), slice(0, h + n + h),
+    utmp = su.set_region(dom, utmp, slice(0, h + n + h), slice(0, h + n + h),
                           u_avg)
-    vtmp = su.set_region(vtmp, slice(0, h + n + h), slice(0, h + n + h),
+    vtmp = su.set_region(dom, vtmp, slice(0, h + n + h), slice(0, h + n + h),
                           v_avg)
     u_lag = A2 * (sh(u, 0, -1) + sh(u, 0, 2)) + A1 * (u + sh(u, 0, 1))
     v_lag = A2 * (sh(v, -1) + sh(v, 2)) + A1 * (v + sh(v, 1))
     interior = slice(lo, hi - 1)
-    utmp = su.set_region(utmp, interior, interior, u_lag)
-    vtmp = su.set_region(vtmp, interior, interior, v_lag)
+    utmp = su.set_region(dom, utmp, interior, interior, u_lag)
+    vtmp = su.set_region(dom, vtmp, interior, interior, v_lag)
 
     # contravariant components at cell centers
     ua = contravariant(utmp, vtmp, cosa_s, rsin2)
     va = contravariant(vtmp, utmp, cosa_s, rsin2)
 
     # x-direction corner fills
-    utmp = _fill_cells(utmp, vtmp, n, h, "x", 3)
-    ua = _fill_cells(ua, va, n, h, "x", 2)
+    utmp = _fill_cells(utmp, vtmp, dom, "x", 3)
+    ua = _fill_cells(ua, va, dom, "x", 2)
 
     # A -> C on x-interfaces
     uc = A2 * (sh(utmp, -2) + sh(utmp, 1)) + A1 * (sh(utmp, -1) + utmp)
     cubic = C1 * sh(utmp, -2) + C2 * sh(utmp, -1) + C3 * utmp
     cubic_rev = C1 * sh(utmp, 1) + C2 * utmp + C3 * sh(utmp, -1)
     for i in (h - 1, h + n - 1):
-        uc = su.upd_cols(uc, cubic, i)
+        uc = su.upd_cols(dom, uc, cubic, i)
     for i in (h + 1, h + n + 1):
-        uc = su.upd_cols(uc, cubic_rev, i)
+        uc = su.upd_cols(dom, uc, cubic_rev, i)
     ut = contravariant(uc, v, cosa_u, rsin_u)
     edge4 = _edge_interpolate4_x(ua, dxa)
     sinw = torch.where(edge4 > 0.0, sh(sin_sg3, -1), sin_sg1)
     for i in (h, h + n):
-        ut = su.upd_cols(ut, edge4, i)
-        uc = su.upd_cols(uc, (edge4 * sinw), i)
+        ut = su.upd_cols(dom, ut, edge4, i)
+        uc = su.upd_cols(dom, uc, (edge4 * sinw), i)
 
     # y-direction corner fills
-    vtmp = _fill_cells(vtmp, utmp, n, h, "y", 3)
-    va = _fill_cells(va, ua, n, h, "y", 2)
+    vtmp = _fill_cells(vtmp, utmp, dom, "y", 3)
+    va = _fill_cells(va, ua, dom, "y", 2)
 
     # A -> C on y-interfaces
     vc = A2 * (sh(vtmp, 0, -2) + sh(vtmp, 0, 1)) \
@@ -117,24 +118,24 @@ def d2a2c_vect(u, v, gd, n: int, h: int):
     cubic = C1 * sh(vtmp, 0, -2) + C2 * sh(vtmp, 0, -1) + C3 * vtmp
     cubic_rev = C1 * sh(vtmp, 0, 1) + C2 * vtmp + C3 * sh(vtmp, 0, -1)
     for j in (h - 1, h + n - 1):
-        vc = su.upd_rows(vc, cubic, j)
+        vc = su.upd_rows(dom, vc, cubic, j)
     for j in (h + 1, h + n + 1):
-        vc = su.upd_rows(vc, cubic_rev, j)
+        vc = su.upd_rows(dom, vc, cubic_rev, j)
     vt = contravariant(vc, u, cosa_v, rsin_v)
     edge4 = _edge_interpolate4_y(va, dya)
     sins = torch.where(edge4 > 0.0, sh(sin_sg4, 0, -1), sin_sg2)
     for j in (h, h + n):
-        vt = su.upd_rows(vt, edge4, j)
-        vc = su.upd_rows(vc, (edge4 * sins), j)
+        vt = su.upd_rows(dom, vt, edge4, j)
+        vc = su.upd_rows(dom, vc, (edge4 * sins), j)
 
     return uc, vc, ua, va, ut, vt
 
 
-def _fill_cells(q, q_corner, n, h, direction, ncells):
+def _fill_cells(q, q_corner, dom, direction, ncells):
     """Corner fill with the rotated companion component (sign -1 at the
     south-west and north-east corners)."""
     return corner_ops.fill_corners_cells(
-        q, q_corner, n, h, direction, ncells,
+        q, q_corner, dom, direction, ncells,
         sw_mult=-1.0, se_mult=1.0, nw_mult=1.0, ne_mult=-1.0,
     )
 

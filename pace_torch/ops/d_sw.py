@@ -30,9 +30,10 @@ def flux_increment(gx, gy, rarea):
     return (gx - shift(gx, 1) + gy - shift(gy, 0, 1)) * rarea
 
 
-def _interpolate_uc_vc_to_corners(uc, vc, ut, vt, gd, n, h):
+def _interpolate_uc_vc_to_corners(uc, vc, ut, vt, gd, dom):
     """Covariant C-grid -> contravariant B-grid (corner) winds
     (d_sw.py interpolate_uc_vc_to_cell_corners)."""
+    n, h = dom.n, dom.h
     cosa = gd.angle.cosa[..., None]
     rsina = gd.angle.rsina[..., None]
     ub_cov = 0.5 * (shift(uc, 0, -1) + uc)
@@ -43,23 +44,24 @@ def _interpolate_uc_vc_to_corners(uc, vc, ut, vt, gd, n, h):
         -shift(ut, 0, -2) + 3.0 * (shift(ut, 0, -1) + ut) - shift(ut, 0, 1)
     )
     for j in (h, h + n):
-        ub_contra = su.upd_rows(ub_contra, ub_edge_j, j)
+        ub_contra = su.upd_rows(dom, ub_contra, ub_edge_j, j)
     ub_edge_i = 0.5 * (shift(ut, 0, -1) + ut)
     for i in (h, h + n):
-        ub_contra = su.upd_cols(ub_contra, ub_edge_i, i)
+        ub_contra = su.upd_cols(dom, ub_contra, ub_edge_i, i)
     vb_edge_i = 0.25 * (
         -shift(vt, -2) + 3.0 * (shift(vt, -1) + vt) - shift(vt, 1)
     )
     for i in (h, h + n):
-        vb_contra = su.upd_cols(vb_contra, vb_edge_i, i)
+        vb_contra = su.upd_cols(dom, vb_contra, vb_edge_i, i)
     vb_edge_j = 0.5 * (shift(vt, -1) + vt)
     for j in (h, h + n):
-        vb_contra = su.upd_rows(vb_contra, vb_edge_j, j)
+        vb_contra = su.upd_rows(dom, vb_contra, vb_edge_j, j)
     return ub_contra, vb_contra
 
 
-def _corner_ke(ke, u, v, ut, vt, dt, n, h):
+def _corner_ke(ke, u, v, ut, vt, dt, dom):
     """Cube-corner kinetic-energy special cases (d_sw.py all_corners_ke)."""
+    n, h = dom.n, dom.h
     dt6 = dt / 6.0
 
     def expr(io1, jo1, io2, vsign):
@@ -79,24 +81,24 @@ def _corner_ke(ke, u, v, ut, vt, dt, n, h):
         (h, h + n, 0, -1, -1, -1),
     ):
         e = expr(io1, jo1, io2, vsign)
-        ke = su.upd_point(ke, e, ci, cj)
+        ke = su.upd_point(dom, ke, e, ci, cj)
     return ke
 
 
-def _make_transport(crx, cry, xfx, yfx, gd, n, h):
+def _make_transport(crx, cry, xfx, yfx, gd, dom):
     """Transport closure: the listed fields go through ONE batched
     transport call; the del-n damping stays in torch on the x corner copy.
     Returns (list of (fx, fy), list of q_x)."""
     hz = gd.horizontal
 
     def transport(qs, hord, xmf=None, ymf=None):
-        qy = torch.stack([corner_ops.copy_corners(q, n, h, "y") for q in qs])
-        qx = corner_ops.copy_corners(qy.movedim(0, -1), n, h, "x")
+        qy = torch.stack([corner_ops.copy_corners(q, dom, "y") for q in qs])
+        qx = corner_ops.copy_corners(qy.movedim(0, -1), dom, "x")
         qx = qx.movedim(-1, 0).contiguous()
         fx, fy = transport_batched(
             qy, qx, crx, cry, xfx, yfx,
             xfx if xmf is None else xmf, yfx if ymf is None else ymf,
-            hz.dxa, hz.dya, hz.area, n, h, hord,
+            hz.dxa, hz.dya, hz.area, dom, hord,
         )
         return [(fx[i], fy[i]) for i in range(len(qs))], list(qx)
 
@@ -105,9 +107,10 @@ def _make_transport(crx, cry, xfx, yfx, gd, n, h):
 
 def d_sw(
     delp, pt, u, v, w, uc, vc, ua, va, divgd, mfx, mfy, cx, cy,
-    q_con, heat_source, diss_est, ut_in, vt_in, gd, col, config, n, h, dt,
+    q_con, heat_source, diss_est, ut_in, vt_in, gd, col, config, dom, dt,
 ):
     """One D-grid shallow water step. Returns a dict of updated fields."""
+    n, h = dom.n, dom.h
     hz, ang = gd.horizontal, gd.angle
     rarea = hz.rarea[..., None]
     dx = hz.dx[..., None]
@@ -115,8 +118,8 @@ def d_sw(
     ci = slice(h, h + n)
     cie = slice(h, h + n + 1)
 
-    crx, cry, xfx, yfx, ut, vt = fx_adv(uc, vc, ut_in, vt_in, gd, n, h, dt)
-    transport = _make_transport(crx, cry, xfx, yfx, gd, n, h)
+    crx, cry, xfx, yfx, ut, vt = fx_adv(uc, vc, ut_in, vt_in, gd, dom, dt)
+    transport = _make_transport(crx, cry, xfx, yfx, gd, dom)
 
     # cell-mean relative vorticity (Stokes) — from the INPUT u/v; used
     # for the vorticity-flux transport and the damping/heating blocks
@@ -131,7 +134,7 @@ def d_sw(
     fx, fy = fluxes[0]
     qx_delp = qx_list[0]
     fx, fy = delnflux_mod.deln_flux(
-        qx_delp, fx, fy, gd, col["nord_v"], col["damp_vt"], n, h,
+        qx_delp, fx, fy, gd, col["nord_v"], col["damp_vt"], dom,
     )
 
     cx = cx + crx
@@ -145,7 +148,7 @@ def d_sw(
     )
     fx2, fy2, _ = delnflux_mod.deln_flux_nosg(
         w, gd.damping.del6_u, gd.damping.del6_v, hz.rarea,
-        col["nord_w"], damp_w_col, n, h,
+        col["nord_w"], damp_w_col, dom,
     )
     damp_w_mask = su.level_mask(col["damp_w"] > 1e-5, w)
     ke_bg_k = su.column(col["ke_bg"], w)
@@ -173,7 +176,7 @@ def d_sw(
                 group, fluxes, qx_list):
             if nord_c is not None:
                 gx, gy = delnflux_mod.deln_flux(
-                    qx, gx, gy, gd, nord_c, damp_c, n, h, mass=delp,
+                    qx, gx, gy, gd, nord_c, damp_c, dom, mass=delp,
                 )
             results[name] = (gx, gy)
 
@@ -187,8 +190,8 @@ def d_sw(
     pt_new = pt * delp + flux_increment(gx, gy, rarea)
     delp_new = delp + flux_increment(fx, fy, rarea)
     pt_new = pt_new / delp_new
-    pt = su.upd_point(pt, pt_new, ci, ci)
-    delp = su.upd_point(delp, delp_new, ci, ci)
+    pt = su.upd_point(dom, pt, pt_new, ci, ci)
+    delp = su.upd_point(dom, delp, delp_new, ci, ci)
 
     # finish w/q_con updates
     w = w / delp
@@ -197,21 +200,21 @@ def d_sw(
 
     # kinetic energy on corners (Hollingsworth-Kallberg-consistent)
     ub_contra, vb_contra = _interpolate_uc_vc_to_corners(
-        uc, vc, ut, vt, gd, n, h
+        uc, vc, ut, vt, gd, dom
     )
     advected_v = advect_v_along_y(
-        v, vb_contra, hz.rdy[..., None], dy, hz.dya[..., None], dt, n, h,
+        v, vb_contra, hz.rdy[..., None], dy, hz.dya[..., None], dt, dom,
         config.hord_mt,
     )
     advected_u = advect_u_along_x(
-        u, ub_contra, hz.rdx[..., None], dx, hz.dxa[..., None], dt, n, h,
+        u, ub_contra, hz.rdx[..., None], dx, hz.dxa[..., None], dt, dom,
         config.hord_mt,
     )
     ke = 0.5 * dt * (ub_contra * advected_u + vb_contra * advected_v)
-    ke = _corner_ke(ke, u, v, ut, vt, dt, n, h)
+    ke = _corner_ke(ke, u, v, ut, vt, dt, dom)
 
     vort_damped_b, ke, delpc, divgd = divergence_damping(
-        u, v, va, ua, divgd, vc, uc, ke, vorticity_agrid, gd, n, h, dt,
+        u, v, va, ua, divgd, vc, uc, ke, vorticity_agrid, gd, dom, dt,
         dddmp=config.dddmp, d4_bg=config.d4_bg, nord=config.nord,
         nord_col=col["nord"], d2_bg_col=col["d2_divg"],
     )
@@ -222,8 +225,8 @@ def d_sw(
     # u/v update from KE gradient + vorticity fluxes (outputs u*dx, v*dy)
     u_new = u * dx + ke - shift(ke, 1) + fy
     v_new = v * dy + ke - shift(ke, 0, 1) - fx
-    u = su.upd_point(u, u_new, ci, cie)
-    v = su.upd_point(v, v_new, cie, ci)
+    u = su.upd_point(dom, u, u_new, ci, cie)
+    v = su.upd_point(dom, v, v_new, cie, ci)
 
     # vorticity damping fluxes and implied heating
     damp_vt_col = delnflux_mod.calc_damp(
@@ -231,16 +234,16 @@ def d_sw(
     )
     ut_d, vt_d, _ = delnflux_mod.deln_flux_nosg(
         vorticity_agrid, gd.damping.del6_u, gd.damping.del6_v, hz.rarea,
-        col["nord_v"], damp_vt_col, n, h,
+        col["nord_v"], damp_vt_col, dom,
     )
 
     if col["d_con"][0] > DCON_THRESHOLD or config.do_skeb:
         vxd = torch.zeros_like(vort_damped_b)
         vyd = torch.zeros_like(vort_damped_b)
         dcol = vort_damped_b - shift(vort_damped_b, 1)
-        vxd = su.upd_point(vxd, dcol, ci, cie)
+        vxd = su.upd_point(dom, vxd, dcol, ci, cie)
         dcol = vort_damped_b - shift(vort_damped_b, 0, 1)
-        vyd = su.upd_point(vyd, dcol, cie, ci)
+        vyd = su.upd_point(dom, vyd, dcol, cie, ci)
 
         rdx = hz.rdx[..., None]
         rdy = hz.rdy[..., None]
@@ -270,15 +273,15 @@ def d_sw(
             heat_s = torch.where(
                 heat_mask, delp * (heat_s - d_con_k * dampterm), heat_s
             )
-        heat_source = su.region_add(heat_source, ci, ci, heat_s)
+        heat_source = su.region_add(dom, heat_source, ci, ci, heat_s)
         if config.do_skeb:
             diss_est = diss_est - dampterm
 
     damp_vt_mask = su.level_mask(col["damp_vt"] > 1e-5, w)
     u_upd = torch.where(damp_vt_mask, u + vt_d, u)
     v_upd = torch.where(damp_vt_mask, v - ut_d, v)
-    u = su.upd_point(u, u_upd, ci, cie)
-    v = su.upd_point(v, v_upd, cie, ci)
+    u = su.upd_point(dom, u, u_upd, ci, cie)
+    v = su.upd_point(dom, v, v_upd, cie, ci)
 
     return dict(
         delp=delp, pt=pt, u=u, v=v, w=w, q_con=q_con, divgd=divgd,

@@ -12,9 +12,10 @@ from pace_torch.ops import stencil_utils as su
 from pace_torch.ops.stencil_utils import shift
 
 
-def _corner_fill(q, n, h):
+def _corner_fill(q, dom):
     """Average the 3 cells meeting at each cube corner into all three
     locations (del2cubed.py corner_fill)."""
+    n, h = dom.n, dom.h
     third = 1.0 / 3.0
     isc, iec = h, h + n - 1
     jsc, jec = h, h + n - 1
@@ -36,21 +37,21 @@ def _corner_fill(q, n, h):
     ]
     for (ti, tj), offs in updates:
         expr = sum(su.shift(q, oi, oj) for (oi, oj) in offs) * third
-        out = su.upd_point(out, expr, ti, tj)
+        out = su.upd_point(dom, out, expr, ti, tj)
     return out
 
 
-def hyperdiffusion(qdel, gd, cd, n, h, nmax=3):
+def hyperdiffusion(qdel, gd, cd, dom, nmax=3):
     """Apply ntimes=min(3, nmax) del-2 filter passes to qdel."""
     del6_u = gd.damping.del6_u[..., None]
     del6_v = gd.damping.del6_v[..., None]
     rarea = gd.horizontal.rarea[..., None]
     ntimes = int(min(3, nmax))
     for _ in range(ntimes):
-        q = _corner_fill(qdel, n, h)
-        qx = corner_ops.copy_corners(q, n, h, "x")
+        q = _corner_fill(qdel, dom)
+        qx = corner_ops.copy_corners(q, dom, "x")
         fx = del6_v * (shift(qx, -1) - qx)
-        qy = corner_ops.copy_corners(qx, n, h, "y")
+        qy = corner_ops.copy_corners(qx, dom, "y")
         fy = del6_u * (shift(qy, 0, -1) - qy)
         qdel = qy + cd * rarea * (fx - shift(fx, 1) + fy - shift(fy, 0, 1))
     return qdel

@@ -21,7 +21,7 @@ def calc_damp(damp_c_col, da_min: float, nord_col):
     return (np.asarray(damp_c_col) * da_min) ** (np.asarray(nord_col) + 1.0)
 
 
-def deln_flux_nosg(q, del6_u, del6_v, rarea, nord_col, damp_col, n, h,
+def deln_flux_nosg(q, del6_u, del6_v, rarea, nord_col, damp_col, dom,
                    mass=None):
     """Compute (but do not apply) del-n damping fluxes fx2, fy2 of q.
 
@@ -50,11 +50,11 @@ def deln_flux_nosg(q, del6_u, del6_v, rarea, nord_col, damp_col, n, h,
 
     def ccx(a):
         # the reference fills corners of nord > 0 levels only
-        fixed = corner_ops.copy_corners(a, n, h, "x")
+        fixed = corner_ops.copy_corners(a, dom, "x")
         return torch.where(mask_hi, fixed, a) if nmax > 0 else a
 
     def ccy(a):
-        fixed = corner_ops.copy_corners(a, n, h, "y")
+        fixed = corner_ops.copy_corners(a, dom, "y")
         return torch.where(mask_hi, fixed, a) if nmax > 0 else a
 
     d2 = ccx(d2)
@@ -73,7 +73,7 @@ def deln_flux_nosg(q, del6_u, del6_v, rarea, nord_col, damp_col, n, h,
     return fx2, fy2, d2
 
 
-def deln_flux(q, fx, fy, gd, nord_col, damp_c_col, n, h, mass=None):
+def deln_flux(q, fx, fy, gd, nord_col, damp_c_col, dom, mass=None):
     """Compute del-n damping fluxes of q and add them to fx/fy (reference
     DelnFlux.__call__). nord_col/damp_c_col are (nz,) numpy columns.
     Returns (fx, fy)."""
@@ -83,7 +83,7 @@ def deln_flux(q, fx, fy, gd, nord_col, damp_c_col, n, h, mass=None):
     damp_col = calc_damp(damp_c_np, gd.damping.da_min, nord_col)
     fx2, fy2, _ = deln_flux_nosg(
         q, gd.damping.del6_u, gd.damping.del6_v, gd.horizontal.rarea,
-        nord_col, damp_col, n, h, mass=mass,
+        nord_col, damp_col, dom, mass=mass,
     )
     if mass is None:
         return fx + fx2, fy + fy2

@@ -26,10 +26,11 @@ def _damp_tmp(q, da_min_c, d2_bg, dddmp):
 
 
 def divergence_damping(
-    u, v, va, ua, divg_d, vc, uc, ke, rel_vort_agrid, gd, n, h, dt,
+    u, v, va, ua, divg_d, vc, uc, ke, rel_vort_agrid, gd, dom, dt,
     dddmp, d4_bg, nord: int, nord_col, d2_bg_col, stretched_grid=False,
 ):
     """Returns (vort_damped_bgrid, ke, delpc, divg_d)."""
+    n, h = dom.n, dom.h
     ang, hz, dc = gd.angle, gd.horizontal, gd.damping
     da_min = dc.da_min
     da_min_c = dc.da_min_c
@@ -64,7 +65,7 @@ def divergence_damping(
         )
         edge = torch.where(vc > 0.0, u * shift(sin4, 0, -1), u * sin2)
         for j in (h, h + n):
-            u_contra = su.upd_rows(u_contra, edge, j)
+            u_contra = su.upd_rows(dom, u_contra, edge, j)
         u_contra_dyc = u_contra * hz.dyc[..., None]
 
         uc_from_ua = 0.5 * (shift(ua, -1) + ua)
@@ -73,7 +74,7 @@ def divergence_damping(
         )
         edge = torch.where(uc > 0.0, v * shift(sin3, -1), v * sin1)
         for i in (h, h + n):
-            v_contra = su.upd_cols(v_contra, edge, i)
+            v_contra = su.upd_cols(dom, v_contra, edge, i)
         v_contra_dxc = v_contra * hz.dxc[..., None]
 
         delpc = (
@@ -82,10 +83,10 @@ def divergence_damping(
         )
         minus = delpc - shift(v_contra_dxc, 0, -1)
         for ci, cj in ((h, h), (h + n, h)):
-            delpc = su.upd_point(delpc, minus, ci, cj)
+            delpc = su.upd_point(dom, delpc, minus, ci, cj)
         plus = delpc + v_contra_dxc
         for ci, cj in ((h, h + n), (h + n, h + n)):
-            delpc = su.upd_point(delpc, plus, ci, cj)
+            delpc = su.upd_point(dom, delpc, plus, ci, cj)
         delpc = rarea_c * delpc
 
         damp = _damp_tmp(delpc * dt, da_min_c, d2_bg, dddmp)
@@ -111,26 +112,26 @@ def divergence_damping(
     for it in range(nonzero_nord):
         fillc = (it + 1) != nonzero_nord
         if fillc:
-            fixed = corner_ops.fill_corners_2d(divg_d, n, h, "B", "x")
+            fixed = corner_ops.fill_corners_2d(divg_d, dom, "B", "x")
             divg_d = torch.where(high_mask, fixed, divg_d)
         vc_i = (shift(divg_d, 1) - divg_d) * divg_u
         if fillc:
-            fixed = corner_ops.fill_corners_2d(divg_d, n, h, "B", "y")
+            fixed = corner_ops.fill_corners_2d(divg_d, dom, "B", "y")
             divg_d = torch.where(high_mask, fixed, divg_d)
         uc_i = (shift(divg_d, 0, 1) - divg_d) * divg_v
         if fillc:
             vc_f, uc_f = corner_ops.fill_corners_dgrid(
-                vc_i, uc_i, n, h, vector=True
+                vc_i, uc_i, dom, vector=True
             )
             vc_i = torch.where(high_mask, vc_f, vc_i)
             uc_i = torch.where(high_mask, uc_f, uc_i)
         new_divg = shift(uc_i, 0, -1) - uc_i + shift(vc_i, -1) - vc_i
         minus = new_divg - shift(uc_i, 0, -1)
         for ci, cj in ((h, h), (h + n, h)):
-            new_divg = su.upd_point(new_divg, minus, ci, cj)
+            new_divg = su.upd_point(dom, new_divg, minus, ci, cj)
         plus = new_divg + uc_i
         for ci, cj in ((h, h + n), (h + n, h + n)):
-            new_divg = su.upd_point(new_divg, plus, ci, cj)
+            new_divg = su.upd_point(dom, new_divg, plus, ci, cj)
         if not stretched_grid:
             new_divg = new_divg * rarea_c
         divg_d = torch.where(high_mask, new_divg * s_damp, divg_d)
@@ -139,7 +140,7 @@ def divergence_damping(
         vort = torch.where(high_mask, 0.0, vort)
     else:
         # Smagorinsky: corner-interpolated relative vorticity
-        vort_b = a2b_ord4(rel_vort_agrid, gd, n, h)
+        vort_b = a2b_ord4(rel_vort_agrid, gd, dom)
         smag = abs(dt) * torch.sqrt(delpc ** 2 + vort_b ** 2)
         vort = torch.where(high_mask, smag, vort)
 

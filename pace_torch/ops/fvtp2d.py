@@ -28,25 +28,25 @@ LAUNCHES = 0
 
 
 def _fluxes_one(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area,
-                n, h, hord):
+                dom, hord):
     """fv_tp_2d's undamped fluxes of one field (whole-array torch)."""
     ord_outer = hord
     ord_inner = 8 if hord == 10 else hord
-    q_y_advected_mean = y_flux(q_y, cry, dya, n, h, ord_inner)
+    q_y_advected_mean = y_flux(q_y, cry, dya, dom, ord_inner)
     fyy = yfx * q_y_advected_mean
     q_advected_y = (q_y * area + fyy - shift(fyy, 0, 1)) / (
         area + yfx - shift(yfx, 0, 1)
     )
     q_advected_y_x_advected_mean = x_flux(
-        q_advected_y, crx, dxa, n, h, ord_outer
+        q_advected_y, crx, dxa, dom, ord_outer
     )
-    q_x_advected_mean = x_flux(q_x, crx, dxa, n, h, ord_inner)
+    q_x_advected_mean = x_flux(q_x, crx, dxa, dom, ord_inner)
     fx1 = xfx * q_x_advected_mean
     q_advected_x = (q_x * area + fx1 - shift(fx1, 1)) / (
         area + xfx - shift(xfx, 1)
     )
     q_advected_x_y_advected_mean = y_flux(
-        q_advected_x, cry, dya, n, h, ord_outer
+        q_advected_x, cry, dya, dom, ord_outer
     )
     fx = 0.5 * (q_advected_y_x_advected_mean + q_x_advected_mean) * xmf
     fy = 0.5 * (q_advected_x_y_advected_mean + q_y_advected_mean) * ymf
@@ -54,17 +54,18 @@ def _fluxes_one(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area,
 
 
 def transport_batched_plain(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf,
-                            dxa, dya, area, n: int, h: int, hord: int):
+                            dxa, dya, area, dom, hord: int):
     """Plain torch version of the batched transport.
 
-    q_y/q_x: (T, tiles, N, N, nz) corner-copied stacks (copy_corners(q,
-    "y") and copy_corners(copy_corners(q, "y"), "x")), any tile count;
-    crx/cry/xfx/yfx/xmf/ymf: (tiles, N, N, nz); dxa/dya/area: (tiles, N,
-    N).  Returns (fx, fy), each (T, tiles, N, N, nz)."""
+    q_y/q_x: (T, tiles, Ni, Nj, nz) corner-copied stacks (copy_corners(q,
+    "y") and copy_corners(copy_corners(q, "y"), "x")), any tile count, on
+    the block of `dom`; crx/cry/xfx/yfx/xmf/ymf: (tiles, Ni, Nj, nz);
+    dxa/dya/area: (tiles, Ni, Nj).  Returns (fx, fy), each (T, tiles, Ni,
+    Nj, nz)."""
     dxa, dya, area = dxa[..., None], dya[..., None], area[..., None]
     out = [
         _fluxes_one(q_y[t], q_x[t], crx, cry, xfx, yfx, xmf, ymf, dxa, dya,
-                    area, n, h, hord)
+                    area, dom, hord)
         for t in range(q_y.shape[0])
     ]
     return (torch.stack([o[0] for o in out]),
@@ -72,53 +73,54 @@ def transport_batched_plain(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf,
 
 
 def transport_batched_cuda(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf,
-                           dxa, dya, area, n: int, h: int, hord: int):
+                           dxa, dya, area, dom, hord: int):
     """The batched transport as one launch of the CUDA kernel (same
-    arguments and results as transport_batched_plain, every hord)."""
+    arguments and results as transport_batched_plain, every hord): any
+    tile count and block extents (Ni, Nj), the tile's edge lines at their
+    local indices along each axis (outside [0, Ni) or [0, Nj) where the
+    block does not hold them)."""
     global LAUNCHES
     from pace_torch.ops import _cuda
 
-    T, tiles, N, N2, nz = q_y.shape
+    T, tiles, Ni, Nj, nz = q_y.shape
     shared = (crx, cry, xfx, yfx, xmf, ymf)
-    _cuda.check(q_y, q_x, shape=(T, tiles, N, N2, nz))
-    _cuda.check(*shared, shape=(tiles, N, N2, nz), dtype=q_y.dtype)
-    _cuda.check(dxa, dya, area, shape=(tiles, N, N2), dtype=q_y.dtype)
-    # a rank of a (t, 1, 1) layout holds 6 / t whole tiles
-    if tiles not in (1, 2, 3, 6) or N != N2 or not (h + n + 2 <= N):
-        raise ValueError(f"unsupported transport shape {tuple(q_y.shape)}")
+    _cuda.check(q_y, q_x, shape=(T, tiles, dom.Ni, dom.Nj, nz))
+    _cuda.check(*shared, shape=(tiles, Ni, Nj, nz), dtype=q_y.dtype)
+    _cuda.check(dxa, dya, area, shape=(tiles, Ni, Nj), dtype=q_y.dtype)
     fx, fy = torch.empty_like(q_y), torch.empty_like(q_y)
     _cuda.launch(
         "fvtp2d", q_y.dtype,
         q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area, fx, fy,
-        ints=(T, tiles, N, nz, n, h, hord),
+        ints=(T, tiles, Ni, Nj, nz, *dom.edge_lines(1), *dom.edge_lines(2),
+              hord),
     )
     LAUNCHES += 1
     return fx, fy
 
 
 def transport_batched(q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya,
-                      area, n: int, h: int, hord: int):
+                      area, dom, hord: int):
     """Batched fv_tp_2d fluxes (no damping); see transport_batched_plain.
     A CPU tensor takes the plain version, a CUDA tensor the kernel."""
     args = (q_y, q_x, crx, cry, xfx, yfx, xmf, ymf, dxa, dya, area)
     with bounds.kernel_call("K-T") as report:
         if q_y.is_cuda:
-            out = transport_batched_cuda(*args, n, h, hord)
+            out = transport_batched_cuda(*args, dom, hord)
         else:
-            out = transport_batched_plain(*args, n, h, hord)
+            out = transport_batched_plain(*args, dom, hord)
         report(args, out, q_y.numel())
     return out
 
 
 def fv_tp_2d(
-    q, crx, cry, x_area_flux, y_area_flux, gd, n: int, h: int, hord: int,
+    q, crx, cry, x_area_flux, y_area_flux, gd, dom, hord: int,
     nord_col=None, damp_c_col=None, x_mass_flux=None, y_mass_flux=None,
     mass=None, q_y=None, q_x=None,
 ):
     """Compute transport fluxes (q_x_flux, q_y_flux) of q.
 
     Args:
-        q: transported scalar (6, N, N, nz)
+        q: transported scalar (tiles, Ni, Nj, nz) of dom's block
         crx/cry: Courant numbers on x/y interfaces
         x_area_flux/y_area_flux: area fluxes [m^2]
         hord: PPM order (ord_inner = 8 if hord == 10 else hord)
@@ -127,19 +129,19 @@ def fv_tp_2d(
         q_y/q_x: optionally precomputed corner copies
     """
     if q_y is None:
-        q_y = corner_ops.copy_corners(q, n, h, "y")
+        q_y = corner_ops.copy_corners(q, dom, "y")
     if q_x is None:
-        q_x = corner_ops.copy_corners(q_y, n, h, "x")
+        q_x = corner_ops.copy_corners(q_y, dom, "x")
     hz = gd.horizontal
     fx, fy = transport_batched(
         q_y[None].contiguous(), q_x[None].contiguous(), crx, cry,
         x_area_flux, y_area_flux,
         x_area_flux if x_mass_flux is None else x_mass_flux,
         y_area_flux if y_mass_flux is None else y_mass_flux,
-        hz.dxa, hz.dya, hz.area, n, h, hord,
+        hz.dxa, hz.dya, hz.area, dom, hord,
     )
     fx, fy = fx[0], fy[0]
     if nord_col is not None and damp_c_col is not None:
-        fx, fy = deln_flux(q_x, fx, fy, gd, nord_col, damp_c_col, n, h,
+        fx, fy = deln_flux(q_x, fx, fy, gd, nord_col, damp_c_col, dom,
                            mass=mass)
     return fx, fy

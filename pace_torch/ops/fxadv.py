@@ -16,9 +16,10 @@ from pace_torch.ops.d2a2c import contravariant
 from pace_torch.ops.stencil_utils import shift
 
 
-def fx_adv(uc, vc, ut_in, vt_in, gd, n, h, dt):
+def fx_adv(uc, vc, ut_in, vt_in, gd, dom, dt):
     """Returns (crx, cry, x_area_flux, y_area_flux, ut, vt) where ut/vt are
     the contravariant C-grid winds (uc_contra/vc_contra)."""
+    n, h = dom.n, dom.h
     ang, hz = gd.angle, gd.horizontal
     cosa_u = ang.cosa_u[..., None]
     rsin_u = ang.rsin_u[..., None]
@@ -34,7 +35,7 @@ def fx_adv(uc, vc, ut_in, vt_in, gd, n, h, dt):
     ut = contravariant(uc, v_at_u, cosa_u, rsin_u)
     # restore incoming values on the rows adjacent to south/north tile edges
     for j in (h - 1, h, h + n - 1, h + n):
-        ut = su.upd_rows(ut, ut_in, j)
+        ut = su.upd_rows(dom, ut, ut_in, j)
     u_at_v = 0.25 * (shift(uc, 0, -1) + shift(uc, 1, -1) + uc + shift(uc, 1))
     vt = contravariant(vc, u_at_v, cosa_v, rsin_v)
 
@@ -42,7 +43,7 @@ def fx_adv(uc, vc, ut_in, vt_in, gd, n, h, dt):
     # uc y-edges (west/east interface columns)
     edge = torch.where(uc > 0.0, uc / shift(sin3, -1), uc / sin1)
     for i in (h, h + n):
-        ut = su.upd_cols(ut, edge, i)
+        ut = su.upd_cols(dom, ut, edge, i)
     # vc near west/east edges, excluding rows near south/north edges
     vt_snapshot = vt
     u_contra_avg = 0.25 * (
@@ -50,13 +51,13 @@ def fx_adv(uc, vc, ut_in, vt_in, gd, n, h, dt):
     )
     vt_edge = contravariant(vc, u_contra_avg, cosa_v, 1.0)
     for i in (h - 1, h, h + n - 1, h + n):
-        vt = su.upd_point(vt, vt_edge, i, slice(h, h + n + 1))
+        vt = su.upd_point(dom, vt, vt_edge, i, slice(h, h + n + 1))
         for j in (h, h + 1, h + n - 1, h + n):
-            vt = su.upd_point(vt, vt_snapshot, i, j)
+            vt = su.upd_point(dom, vt, vt_snapshot, i, j)
     # vc x-edges (south/north interface rows)
     edge = torch.where(vc > 0.0, vc / shift(sin4, 0, -1), vc / sin2)
     for j in (h, h + n):
-        vt = su.upd_rows(vt, edge, j)
+        vt = su.upd_rows(dom, vt, edge, j)
     # uc near south/north edges
     ut_snapshot = ut
     v_contra_avg = 0.25 * (
@@ -64,9 +65,9 @@ def fx_adv(uc, vc, ut_in, vt_in, gd, n, h, dt):
     )
     ut_edge = contravariant(uc, v_contra_avg, cosa_u, 1.0)
     for j in (h - 1, h, h + n - 1, h + n):
-        ut = su.upd_point(ut, ut_edge, slice(h, h + n + 1), j)
+        ut = su.upd_point(dom, ut, ut_edge, slice(h, h + n + 1), j)
         for i in (h, h + 1, h + n - 1, h + n):
-            ut = su.upd_point(ut, ut_snapshot, i, j)
+            ut = su.upd_point(dom, ut, ut_snapshot, i, j)
 
     # --- corner 2x2 system solves -------------------------------------------
     ut_c = ut  # snapshot read by the corner formulas
@@ -74,7 +75,7 @@ def fx_adv(uc, vc, ut_in, vt_in, gd, n, h, dt):
 
     def setc(arr, expr, points):
         for (ci, cj) in points:
-            arr = su.upd_point(arr, expr, ci, cj)
+            arr = su.upd_point(dom, arr, expr, ci, cj)
         return arr
 
     damp = 1.0 / (1.0 - 0.0625 * cosa_u * shift(cosa_v, -1))

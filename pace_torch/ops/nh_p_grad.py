@@ -21,7 +21,7 @@ from pace_torch.utils import constants
 SDAY = 86400.0
 
 
-def nh_p_grad(u, v, pp, gz, pk3, delp, gd, n, h, dt, ptop, akap):
+def nh_p_grad(u, v, pp, gz, pk3, delp, gd, dom, dt, ptop, akap):
     """Apply hydrostatic + nonhydrostatic PGF to (u*dx, v*dy), returning
     true winds. pp/gz/pk3 are interface fields (..., nz+1); returns
     (u, v, pp_b, gz_b, pk3_b)."""
@@ -32,7 +32,7 @@ def nh_p_grad(u, v, pp, gz, pk3, delp, gd, n, h, dt, ptop, akap):
     nzp = gz.shape[-1]
     nz = nzp - 1
     stacked = torch.cat([pp[..., 1:], pk3[..., 1:], gz, delp], -1)
-    out = a2b_ord4(stacked, gd, n, h)
+    out = a2b_ord4(stacked, gd, dom)
     pp = torch.cat([pp[..., :1], out[..., :nz]], -1)
     pk3 = torch.cat([pk3[..., :1], out[..., nz:2 * nz]], -1)
     gz = out[..., 2 * nz:2 * nz + nzp]
@@ -78,27 +78,30 @@ def nh_p_grad(u, v, pp, gz, pk3, delp, gd, n, h, dt, ptop, akap):
     return u, v, pp, gz, pk3
 
 
-def pe_halo(pe, delp, ptop, n, h):
+def pe_halo(pe, delp, ptop, dom):
     """Recompute interface pressure on the 1-deep halo ring
     (pe_halo.py edge_pe)."""
+    n, h = dom.n, dom.h
     pe_new = interfaces(ptop, delp)
-    out = pe.clone()
+    out = pe
     for i in (h - 1, h + n):
-        out[:, i, h:h + n] = pe_new[:, i, h:h + n]
+        out = su.upd_point(dom, out, pe_new, i, slice(h, h + n))
     for j in (h - 1, h + n):
-        out[:, h - 1:h + n + 1, j] = pe_new[:, h - 1:h + n + 1, j]
+        out = su.upd_point(dom, out, pe_new, slice(h - 1, h + n + 1), j)
     return out
 
 
-def pk3_halo(pk3, delp, ptop, akap, n, h):
+def pk3_halo(pk3, delp, ptop, akap, dom):
     """Recompute pk3 = pe**kappa on the 2-deep halo ring (pk3_halo.py)."""
-    pk3_new = interfaces(ptop, delp) ** akap
-    out = pk3.clone()
+    n, h = dom.n, dom.h
     # the reference leaves the k=0 interface untouched on the ring
+    pk3_new = torch.cat([pk3[..., :1],
+                         interfaces(ptop, delp)[..., 1:] ** akap], -1)
+    out = pk3
     for i in (h - 2, h - 1, h + n, h + n + 1):
-        out[:, i, h:h + n, 1:] = pk3_new[:, i, h:h + n, 1:]
+        out = su.upd_point(dom, out, pk3_new, i, slice(h, h + n))
     for j in (h - 2, h - 1, h + n, h + n + 1):
-        out[:, h - 2:h + n + 2, j, 1:] = pk3_new[:, h - 2:h + n + 2, j, 1:]
+        out = su.upd_point(dom, out, pk3_new, slice(h - 2, h + n + 2), j)
     return out
 
 

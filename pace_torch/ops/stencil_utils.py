@@ -5,7 +5,9 @@ in `pace_tpu.ops.stencil_utils`.  `shift(q, di, dj)` gives the
 whole-array shifted view, zero-filled at the array bounds (always outside
 any region a stencil writes), so whole arrays compare between the two
 packages.  The region writes (`upd_*`, `set_region`, `region_add`) return
-a new tensor with a slice overwritten and leave their inputs untouched.
+a new tensor with a slice overwritten and leave their inputs untouched; on
+a rank's block (a `Domain` of a split tile) the shifts zero-fill at the
+block's bounds, the halo's width past a side that borders another rank.
 """
 
 from __future__ import annotations
@@ -51,36 +53,51 @@ def _put(dest: torch.Tensor, expr: torch.Tensor, index) -> torch.Tensor:
     return out
 
 
-def upd_cols(dest, expr, *cols):
+# The region writes take the tile's storage indices (ints or slices) and
+# the operator's `Domain` (utils/gridtools.py), which maps them into the
+# block the tensor holds; a line or region the block does not hold is not
+# written.
+
+def upd_cols(dom, dest, expr, *cols):
     """dest[:, i] = expr[:, i] for static columns i (int or slice)."""
     out = dest.clone()
     full = expr.expand_as(dest)
     for i in cols:
-        out[:, i] = full[:, i]
+        i = dom.col(i)
+        if i is not None:
+            out[:, i] = full[:, i]
     return out
 
 
-def upd_rows(dest, expr, *rows):
+def upd_rows(dom, dest, expr, *rows):
     """dest[:, :, j] = expr[:, :, j] for static rows j (int or slice)."""
     out = dest.clone()
     full = expr.expand_as(dest)
     for j in rows:
-        out[:, :, j] = full[:, :, j]
+        j = dom.row(j)
+        if j is not None:
+            out[:, :, j] = full[:, :, j]
     return out
 
 
-def upd_point(dest, expr, i, j):
+def upd_point(dom, dest, expr, i, j):
     """dest[:, i, j] = expr[:, i, j] for static int-or-slice (i, j)."""
+    i, j = dom.col(i), dom.row(j)
+    if i is None or j is None:
+        return dest
     return _put(dest, expr, (slice(None), i, j))
 
 
-def set_region(dest, sx: slice, sy: slice, expr):
+def set_region(dom, dest, sx: slice, sy: slice, expr):
     """dest[:, sx, sy] = expr[:, sx, sy] (expr is a whole-array expression)."""
-    return _put(dest, expr, (slice(None), sx, sy))
+    return upd_point(dom, dest, expr, sx, sy)
 
 
-def region_add(dest, sx, sy, expr):
+def region_add(dom, dest, sx, sy, expr):
     """dest[:, sx, sy] += expr[:, sx, sy]."""
+    sx, sy = dom.col(sx), dom.row(sy)
+    if sx is None or sy is None:
+        return dest
     out = dest.clone()
     out[:, sx, sy] += expr.expand_as(dest)[:, sx, sy]
     return out

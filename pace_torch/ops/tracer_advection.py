@@ -7,7 +7,7 @@ default the Courant bound is the reference's fixed cmax = 2.0, i.e. exactly
 data-dependent split instead: floor(1 + max |Courant|) substeps, the
 maximum taken over the compute domain (of every rank: `topo.reduce_max`)
 and read to the host once per call (a synchronisation, so it stays off the
-default path).  The tracers stay stacked (T, tiles, N, N, nz) through all
+default path).  The tracers stay stacked (T, tiles, Ni, Nj, nz) through all
 substeps, so each substep is one batched transport call.
 """
 
@@ -23,17 +23,19 @@ from pace_torch.parallel import halo as halo_mod
 
 
 def _shift_stack(q, di: int = 0, dj: int = 0):
-    """shift() for tracer stacks (T, tiles, N, N, nz): i, j are axes 2, 3."""
+    """shift() for tracer stacks (T, tiles, Ni, Nj, nz): i, j are axes 2,
+    3."""
     return shift(q.movedim(0, -1), di, dj).movedim(-1, 0)
 
 
-def subcycle_count(x_courant, y_courant, n: int, h: int, topo=None) -> int:
+def subcycle_count(x_courant, y_courant, dom, topo=None) -> int:
     """The dynamic subcycle's trip count, max(floor(1 + max |C|), 1), the
-    maximum over the compute domain (the halo padding may hold NaN) and,
-    with a rank topology, over the ranks.  One host read."""
+    maximum over the compute domain (the halo padding may hold NaN): over
+    the part each rank owns, then, with a rank topology, over the ranks.
+    One host read."""
     cmax = torch.maximum(
-        x_courant[:, h:h + n + 1, h:h + n].abs().max(),
-        y_courant[:, h:h + n, h:h + n + 1].abs().max(),
+        x_courant[(slice(None),) + dom.compute(iface_x=True)].abs().max(),
+        y_courant[(slice(None),) + dom.compute(iface_y=True)].abs().max(),
     )
     if topo is not None:
         cmax = topo.reduce_max(cmax)
@@ -42,10 +44,11 @@ def subcycle_count(x_courant, y_courant, n: int, h: int, topo=None) -> int:
 
 def tracer_advection(
     tracers: dict, dp1, x_mass_flux, y_mass_flux, x_courant, y_courant,
-    gd, topo, n, h, hord_tr, dynamic_subcycle: bool = False,
+    gd, topo, hord_tr, dynamic_subcycle: bool = False,
 ):
-    """Advect tracers (dict of (tiles, N, N, nz) tensors). Returns updated
-    dict."""
+    """Advect tracers (dict of (tiles, Ni, Nj, nz) tensors) on the block
+    of `topo.domain`. Returns updated dict."""
+    dom = topo.domain
     hz, ang = gd.horizontal, gd.angle
     dxa = hz.dxa[..., None]
     dya = hz.dya[..., None]
@@ -69,7 +72,7 @@ def tracer_advection(
     )
 
     if dynamic_subcycle:
-        n_split = subcycle_count(x_courant, y_courant, n, h, topo)
+        n_split = subcycle_count(x_courant, y_courant, dom, topo)
     else:
         n_split = math.floor(1.0 + 2.0)
     frac = 1.0 / n_split
@@ -94,7 +97,7 @@ def tracer_advection(
         qy, qx = halo_mod.halo_update_corners(topo, stacked)
         fx, fy = transport_batched(
             qy, qx, x_courant, y_courant, xfx, yfx, x_mass_flux,
-            y_mass_flux, hz.dxa, hz.dya, hz.area, n, h, hord_tr,
+            y_mass_flux, hz.dxa, hz.dya, hz.area, dom, hord_tr,
         )
         stacked = (
             qy * dp1

@@ -41,7 +41,7 @@ def enforce_monotone(gz):
     return rev - korr
 
 
-def update_dz_c(dp_ref, zs, area, ut, vt, gz, n, h, dt):
+def update_dz_c(dp_ref, zs, area, ut, vt, gz, dom, dt):
     """Advance interface heights on the C grid.
 
     Args:
@@ -52,8 +52,8 @@ def update_dz_c(dp_ref, zs, area, ut, vt, gz, n, h, dt):
         gz: (6, N, N, nz+1) interface geopotential height [m]
     Returns (gz, ws): updated heights and implied surface vertical wind.
     """
-    gz_x = corner_ops.fill_corners_cells(gz, gz, n, h, "x", 2)
-    gz_y = corner_ops.fill_corners_cells(gz, gz, n, h, "y", 2)
+    gz_x = corner_ops.fill_corners_cells(gz, gz, dom, "x", 2)
+    gz_y = corner_ops.fill_corners_cells(gz, gz, dom, "y", 2)
 
     xfx = _interface_interp(ut, dp_ref)
     yfx = _interface_interp(vt, dp_ref)

@@ -86,7 +86,7 @@ def interpolate_to_layer_interfaces_matrix(q, m):
 
 def update_dz_d(
     surface_height, height, crx, cry, x_area_flux, y_area_flux,
-    gd, col, config, n, h, dt, dp0,
+    gd, col, config, dom, dt, dp0,
 ):
     """Returns (height, ws). dp0: (nz,) static numpy reference
     pressure-thickness column."""
@@ -98,7 +98,7 @@ def update_dz_d(
     )
 
     fx, fy = fv_tp_2d(
-        height, crx_i, cry_i, xaf_i, yaf_i, gd, n, h, config.hord_tm
+        height, crx_i, cry_i, xaf_i, yaf_i, gd, dom, config.hord_tm
     )
 
     # del-n diffusive height fluxes; the reference passes the raw damp_vt
@@ -107,7 +107,7 @@ def update_dz_d(
     dampc = np.append(np.asarray(col["damp_vt"]), col["damp_vt"][-1])
     fx2, fy2, _ = delnflux_mod.deln_flux_nosg(
         height, gd.damping.del6_u, gd.damping.del6_v, gd.horizontal.rarea,
-        nordc, dampc, n, h,
+        nordc, dampc, dom,
     )
 
     area = gd.horizontal.area[..., None]

@@ -12,33 +12,35 @@ import torch
 from pace_torch.ops import xppm
 
 
-def _corner_zero_mask(like, ii, jj):
-    """Mask of the cube-corner wind points (d_sw zeroes bl/br there)."""
+def _corner_zero_mask(like, dom, ii, jj):
+    """Mask of the cube-corner wind points (d_sw zeroes bl/br there) at
+    the storage points ii x jj the block holds."""
     m = torch.zeros((like.shape[1], like.shape[2]), dtype=torch.bool,
                     device=like.device)
-    for i in ii:
-        for j in jj:
+    for i in filter(lambda i: i is not None, map(dom.col, ii)):
+        for j in filter(lambda j: j is not None, map(dom.row, jj)):
             m[i, j] = True
     return m.reshape((1,) + m.shape + (1,) * (like.ndim - 3))
 
 
-def _advect_along(w, wb_contra, rd, d, da, dt, n, h, ord_, axis):
-    sh, upd = xppm._ax_ops(axis)
+def _advect_along(w, wb_contra, rd, d, da, dt, dom, ord_, axis):
+    n, h = dom.n, dom.h
+    sh, upd = xppm._ax_ops(axis, dom)
     if abs(ord_) < 8:
-        al = xppm._compute_al(w, d, n, h, sh, upd)
+        al = xppm._compute_al(w, d, dom, sh, upd)
         bl = al - w
         br = sh(al, 1) - w
     else:
         # xtp_u applies the PPM constraint only on the i_start+1 and
         # i_end-1 columns (xtp_u.py get_bl_br), unlike xppm
         bl, br = xppm._compute_blbr_ord8plus(
-            w, da, n, h, sh, upd, axis, constraint_cols=(h + 1, h + n - 2)
+            w, da, dom, sh, upd, axis, constraint_cols=(h + 1, h + n - 2)
         )
     # zero corners: along-axis i in {h-1, h, h+n-1, h+n}, cross j in {h, h+n}
     ii = (h - 1, h, h + n - 1, h + n)
     jj = (h, h + n)
-    mask0 = (_corner_zero_mask(w, ii, jj) if axis == 1
-             else _corner_zero_mask(w, jj, ii))
+    mask0 = (_corner_zero_mask(w, dom, ii, jj) if axis == 1
+             else _corner_zero_mask(w, dom, jj, ii))
     bl = torch.where(mask0, 0.0, bl)
     br = torch.where(mask0, 0.0, br)
     b0 = bl + br
@@ -60,10 +62,10 @@ def _advect_along(w, wb_contra, rd, d, da, dt, n, h, ord_, axis):
     )
 
 
-def advect_u_along_x(u, ub_contra, rdx, dx, dxa, dt, n, h, iord):
+def advect_u_along_x(u, ub_contra, rdx, dx, dxa, dt, dom, iord):
     """u advected to cell corners by the contravariant corner wind."""
-    return _advect_along(u, ub_contra, rdx, dx, dxa, dt, n, h, iord, axis=1)
+    return _advect_along(u, ub_contra, rdx, dx, dxa, dt, dom, iord, axis=1)
 
 
-def advect_v_along_y(v, vb_contra, rdy, dy, dya, dt, n, h, jord):
-    return _advect_along(v, vb_contra, rdy, dy, dya, dt, n, h, jord, axis=2)
+def advect_v_along_y(v, vb_contra, rdy, dy, dya, dt, dom, jord):
+    return _advect_along(v, vb_contra, rdy, dy, dya, dt, dom, jord, axis=2)

@@ -7,9 +7,9 @@ gather with the topology's precomputed tables, moved to the tensor's device
 once.  Vector updates fuse the tile-edge rotation (component swap + sign
 flip) into the gather.
 
-With a `RankTopology` each rank holds its part of the cube (whole tiles
-under a `(t, 1, 1)` layout, parallel/partition.py) and every halo call is
-an `ExchangePlan`: the rank packs the values other ranks need into one
+With a `RankTopology` each rank holds its part of the cube (a block of
+6 / t tiles under a `(t, x, y)` layout, parallel/partition.py) and every
+halo call is an `ExchangePlan`: the rank packs the values other ranks need into one
 buffer, one exchange (parallel/comm.py) swaps the buffers, and one gather
 over [own fields ‖ received rows] fills the halos.  The same functions
 take either topology.
@@ -329,6 +329,8 @@ class RankTopology:
         self.n, self.halo, self.N = partition.n, partition.h, partition.N
         self.global_topology: CubedSphereTopology = get_topology(
             partition.n, partition.h)
+        # the block of each tile the rank holds (utils/gridtools.py)
+        self.domain = partition.domain(rank)
 
     def _plan(self, kind, inputs, outputs) -> ExchangePlan:
         return build_plan(self.partition, self.rank, self.comm, kind,

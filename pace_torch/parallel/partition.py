@@ -10,11 +10,14 @@ parts along i and `y` parts along j.
 Every point of the padded global storage `(6, N, N)` has exactly one owner:
 a box of a rank runs from one compute-domain split to the next, and the
 boxes at a tile's edges also own the halo and padding cells beyond it.  A
-rank holds its box extended by the halo width (clipped to the storage): the
+rank holds its box extended by `depth` lines (clipped to the storage): the
 points outside its box are what a halo exchange fills.  Under `(t, 1, 1)`
-a rank owns and holds whole tiles, `[r * 6 / t, (r + 1) * 6 / t)`; under x
-or y above 1 the boxes are defined here, and the operators' tile-edge
-forms are not (ROADMAP item 11b).
+a rank owns and holds whole tiles, `[r * 6 / t, (r + 1) * 6 / t)`.  Under x
+or y above 1 a rank's `domain` (utils/gridtools.py `Domain`) tells the
+operators which block of the tile storage it holds and where the tile's
+edge lines fall in it; every box must be at least the halo's width, so
+that a rank holding a tile corner holds every point a corner fill
+reads.
 
 Ranks are numbered host-major: with a `dcn_mesh_shape` (the hosts' grid)
 each host holds a contiguous run of ranks, a block of shape
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 from pace_torch.utils import constants
-from pace_torch.utils.gridtools import GridSizing
+from pace_torch.utils.gridtools import Domain, GridSizing
 
 
 def check_layout(layout, dcn_mesh_shape=None) -> Tuple[int, int, int]:
@@ -87,7 +90,18 @@ class Partition:
         t, x, y = self.layout
         if n % x or n % y:
             raise ValueError(f"layout {self.layout} does not divide C{n}")
+        if (x, y) != (1, 1) and min(n // x, n // y) < h:
+            raise ValueError(
+                f"layout {self.layout} at C{n}: its boxes of {n // x} x "
+                f"{n // y} compute cells are narrower than the halo ({h})")
         self.n, self.h = n, h
+        # the lines a rank holds past a side that borders another rank: the
+        # halo and one more.  With h lines a step reads past the block:
+        # d_sw's transport reads its flux preparation's area fluxes h lines
+        # out, and those read the winds one line further; and a box of
+        # exactly h cells beside a tile edge holds that edge's lines in its
+        # halo, where the one-sided edge forms read one line further out.
+        self.depth = h + 1
         self.N = GridSizing(n, 1, h).N
         self.dcn = (tuple(int(v) for v in dcn_mesh_shape)
                     if dcn_mesh_shape is not None else (1, 1, 1))
@@ -135,11 +149,17 @@ class Partition:
         return Box(tiles.start, tiles.stop, i0, i1, j0, j1)
 
     def local_box(self, rank: int) -> Box:
-        """The storage points `rank` holds: its box and the halo width
+        """The storage points `rank` holds: its box and `depth` lines
         around it, within the storage."""
-        b, h, N = self.box(rank), self.h, self.N
-        return Box(b.t0, b.t1, max(b.i0 - h, 0), min(b.i1 + h, N),
-                   max(b.j0 - h, 0), min(b.j1 + h, N))
+        b, d, N = self.box(rank), self.depth, self.N
+        return Box(b.t0, b.t1, max(b.i0 - d, 0), min(b.i1 + d, N),
+                   max(b.j0 - d, 0), min(b.j1 + d, N))
+
+    def domain(self, rank: int) -> Domain:
+        """The block of each tile `rank` holds, as the operators see it."""
+        b, lb = self.box(rank), self.local_box(rank)
+        return Domain(self.n, self.h, self.N, lb.i0, lb.j0, lb.i1 - lb.i0,
+                      lb.j1 - lb.j0, (b.i0, b.i1, b.j0, b.j1))
 
     def owners(self) -> np.ndarray:
         """(6, N, N) int array: the rank owning each storage point."""
@@ -149,17 +169,22 @@ class Partition:
         return out
 
     # -- moving arrays ------------------------------------------------------
-    def scatter(self, array, rank: int):
+    def scatter(self, array, rank: int, axis: Optional[int] = None):
         """`rank`'s part of a global array (numpy or tensor) whose leading
         axis is the tile: the held box of an array of three or more
-        dimensions, the tiles of a smaller one (a (6, N) edge table or a
-        (6, N, N)-less leaf is only cut by tile under whole tiles)."""
+        dimensions; of a (6, N) table running along `axis` (1: i, 2: j, as
+        the grid's edge tables do) the rank's tiles and its held range
+        along that axis; the tiles of a (6,) leaf.  Under whole tiles a
+        (6, N) table needs no axis."""
         b = self.local_box(rank)
         if array.ndim >= 3:
             return array[b.index]
-        if not self.whole_tiles and array.ndim == 2:
-            raise NotImplementedError(
-                "(6, N) tables are not split along i or j (ROADMAP item 11b)")
+        if array.ndim == 2 and not self.whole_tiles:
+            if axis not in (1, 2):
+                raise ValueError("a (6, N) table is cut along the axis it "
+                                 f"runs along (1 or 2), got {axis}")
+            lo, hi = (b.i0, b.i1) if axis == 1 else (b.j0, b.j1)
+            return array[b.t0:b.t1, lo:hi]
         return array[b.t0:b.t1]
 
     def scatterer(self, rank: int) -> Callable:

@@ -26,6 +26,7 @@ import torch
 
 from pace_torch.grid import gnomonic
 from pace_torch.utils import constants
+from pace_torch.utils.gridtools import Domain
 
 WEST, EAST, NORTH, SOUTH = (
     constants.WEST, constants.EAST, constants.NORTH, constants.SOUTH,
@@ -261,6 +262,11 @@ class CubedSphereTopology:
         self.transforms = edge_transforms()
         self._specs: Dict[str, HaloSpec] = {}
 
+    @property
+    def domain(self) -> Domain:
+        """The operators' index space: the whole tile."""
+        return Domain.whole(self.n, self.halo)
+
     # -- public API --------------------------------------------------------
     def scalar_spec(self, stagger: str = "center") -> HaloSpec:
         if stagger not in ("center", "corner"):
@@ -289,9 +295,9 @@ class CubedSphereTopology:
             T = np.asarray(spec.src_tile)
             I = np.asarray(spec.src_i)
             J = np.asarray(spec.src_j)
-            SIy, SJy = copy_corners_perm(self.n, self.halo, self.N, "y")
+            SIy, SJy = copy_corners_perm(self.domain, "y")
             Ty, Iy, Jy = T[:, SIy, SJy], I[:, SIy, SJy], J[:, SIy, SJy]
-            SIx, SJx = copy_corners_perm(self.n, self.halo, self.N, "x")
+            SIx, SJx = copy_corners_perm(self.domain, "x")
             self._specs[key] = (
                 HaloSpec("scalar:center+corner_y", Ty, Iy, Jy),
                 HaloSpec(

@@ -60,22 +60,22 @@ def checkpointing(cp: Checkpointer):
         set_checkpointer(prev)
 
 
-def checkpoint(savepoint_name: str, sizing=None, **arrays) -> None:
+def checkpoint(savepoint_name: str, domain=None, **arrays) -> None:
     """Record `arrays` at the named savepoint with the active checkpointer.
 
-    `sizing=(n, halo)` restricts capture to the compute domain
-    [halo : halo+n+1] in x and y (covers staggered edges): padded wedge
-    cells hold values whose run-to-run spread under perturbation is
-    unbounded, so they must not enter threshold calibration/validation.
+    `domain` (utils/gridtools.py Domain) restricts capture to the compute
+    points it owns, [halo : halo+n+1] in x and y on a whole tile (covers
+    staggered edges): padded wedge cells hold values whose run-to-run
+    spread under perturbation is unbounded, so they must not enter
+    threshold calibration/validation.
     """
     cp = _ACTIVE
     if cp is None:
         return
-    if sizing is not None:
-        n, h = sizing
+    if domain is not None:
+        si, sj = domain.compute(iface_x=True, iface_y=True)
         arrays = {
-            k: (v[:, h:h + n + 1, h:h + n + 1]
-                if getattr(v, "ndim", 0) >= 3 else v)
+            k: v[:, si, sj] if getattr(v, "ndim", 0) >= 3 else v
             for k, v in arrays.items()
         }
     cp(str(savepoint_name), **arrays)

@@ -14,8 +14,8 @@ strictly non-negative, and any field named like a tracer (q*) must stay
 above -1e-8 — the same threshold the reference asserts.  Statecheck
 implies the finiteness check on every field it receives.
 
-Only the compute domain is checked: halo-padding cells legitimately hold
-NaN mid-step.  When the variables are unset the hooks return at once: no
+Only the compute cells a rank owns are checked: halo-padding cells
+legitimately hold NaN mid-step.  When the variables are unset the hooks return at once: no
 host read and no device work.
 """
 
@@ -47,46 +47,52 @@ class NegativeValueDetected(RuntimeError):
     pass
 
 
-def _interior(a: np.ndarray, n: int, h: int) -> np.ndarray:
-    if a.ndim >= 3:
-        # strictly interior cells only: index h+n is a halo row for
-        # cell-centered fields and (h+n, h+n) is a corner-wedge point,
-        # both of which legitimately hold NaN mid-step
-        return a[:, h:h + n, h:h + n]
+def _interior(a, dom):
+    """The compute cells of `dom` (utils/gridtools.py Domain) that the
+    rank owns: halo rows, the row at h+n and the corner-wedge point
+    (h+n, h+n) legitimately hold NaN mid-step.  No Domain: `a` is cut
+    already."""
+    if dom is not None and a.ndim >= 3:
+        si, sj = dom.compute()
+        return a[:, si, sj]
     return a
 
 
-def _host_check(stage: str, n: int, h: int, names, *arrays) -> None:
-    for name, arr in zip(names, arrays):
-        a = _interior(np.asarray(arr), n, h)
-        if not np.isfinite(a).all():
-            count = int((~np.isfinite(a)).sum())
-            raise NaNDetected(
-                f"non-finite values after stage {stage!r}: field {name!r} "
-                f"has {count} bad points (of {a.size})"
+def _check(stage: str, name: str, a: np.ndarray) -> None:
+    if not np.isfinite(a).all():
+        count = int((~np.isfinite(a)).sum())
+        raise NaNDetected(
+            f"non-finite values after stage {stage!r}: field {name!r} "
+            f"has {count} bad points (of {a.size})"
+        )
+    if not STATECHECK_ENABLED:
+        return
+    if name.startswith("delp"):
+        if (a < 0.0).any():
+            count = int((a < 0.0).sum())
+            raise NegativeValueDetected(
+                f"negative delp after stage {stage!r}: field {name!r} "
+                f"has {count} points < 0 (min {float(a.min()):.3e})"
             )
-        if not STATECHECK_ENABLED:
-            continue
-        if name.startswith("delp"):
-            if (a < 0.0).any():
-                count = int((a < 0.0).sum())
-                raise NegativeValueDetected(
-                    f"negative delp after stage {stage!r}: field {name!r} "
-                    f"has {count} points < 0 (min {float(a.min()):.3e})"
-                )
-        elif name in _TRACER_NAMES:
-            if (a < _TRACER_NEG_TOL).any():
-                count = int((a < _TRACER_NEG_TOL).sum())
-                raise NegativeValueDetected(
-                    f"negative tracer after stage {stage!r}: field {name!r} "
-                    f"has {count} points < {_TRACER_NEG_TOL} "
-                    f"(min {float(a.min()):.3e})"
-                )
+    elif name in _TRACER_NAMES:
+        if (a < _TRACER_NEG_TOL).any():
+            count = int((a < _TRACER_NEG_TOL).sum())
+            raise NegativeValueDetected(
+                f"negative tracer after stage {stage!r}: field {name!r} "
+                f"has {count} points < {_TRACER_NEG_TOL} "
+                f"(min {float(a.min()):.3e})"
+            )
 
 
-def statecheck(stage: str, n: int, h: int, **arrays) -> None:
+def _host_check(stage: str, dom, names, *arrays) -> None:
+    for name, arr in zip(names, arrays):
+        _check(stage, name, _interior(np.asarray(arr), dom))
+
+
+def statecheck(stage: str, dom, **arrays) -> None:
     """Check the given tensors for finiteness, negative delp and negative
-    tracers on the compute domain.
+    tracers on the compute cells `dom` owns (the whole tile's in one
+    process, the rank's part of them on a rank of a split layout).
 
     No-op unless PACE_DEBUG_NANCHECK=1 or PACE_DEBUG_STATECHECK=1 was set
     at import time.  The negative-value checks apply only under
@@ -95,11 +101,8 @@ def statecheck(stage: str, n: int, h: int, **arrays) -> None:
     """
     if not (NANCHECK_ENABLED or STATECHECK_ENABLED):
         return
-    interiors = {k: v[:, h:h + n, h:h + n] if v.ndim >= 3 else v
-                 for k, v in arrays.items()}
-    host = to_host(interiors)
-    # the interiors are already cut: check them with no halo
-    _host_check(stage, n, 0, tuple(host), *host.values())
+    host = to_host({k: _interior(v, dom) for k, v in arrays.items()})
+    _host_check(stage, None, tuple(host), *host.values())
 
 
 # the original finiteness-only entry point; a statecheck alias so the

@@ -5,8 +5,9 @@ ai2cm/pace driver/pace/driver/driver.py:389-395 + dsl stencil.py:242-265,
 which runs two model copies and compares every stencil argument).  A
 placement is a function `place(fn, args) -> outputs`: `replicated` runs fn
 on the whole cube in this process; `layout_placement(partition, comm)`
-runs it on this rank's tiles of a rank layout and gathers the outputs, the
-counterpart of the reference package's `mesh_placement`.  Outputs are
+runs it on this rank's block of a rank layout (whole tiles, or boxes that
+split tiles along x and y) and gathers the outputs, the counterpart of the
+reference package's `mesh_placement`.  Outputs are
 compared leaf by leaf, NaNs at the same places counting as equal.
 """
 
@@ -18,7 +19,12 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from pace_torch.grid.generation import GridData
 from pace_torch.parallel.topology import CubedSphereTopology
+from pace_torch.utils.gridtools import Domain
+
+# Values a placement replaces whole instead of leaf by leaf.
+_UNITS = (GridData, Domain)
 
 
 class PairDebugMismatch(AssertionError):
@@ -88,8 +94,11 @@ def replicated(fn: Callable, args):
 
 
 def _map(tree, leaf_fn):
-    """tree with every leaf replaced by leaf_fn(leaf); dataclasses, dicts,
-    tuples and lists are rebuilt."""
+    """tree with every leaf replaced by leaf_fn(leaf); dataclasses (but a
+    GridData or a Domain, which are leaves here), dicts, tuples and lists
+    are rebuilt."""
+    if isinstance(tree, _UNITS):
+        return leaf_fn(tree)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
             f.name: _map(getattr(tree, f.name), leaf_fn)
@@ -107,28 +116,38 @@ def _tiled(leaf, tiles: int) -> bool:
 
 
 def layout_placement(partition, comm=None):
-    """A placement running fn on the tiles of this rank of `partition`
-    (parallel/partition.py, whole-tile layouts): every array leaf of the
-    arguments with a leading axis of 6 and two or more dimensions is cut
-    to the rank's tiles, a `CubedSphereTopology` becomes the rank's
-    `RankTopology`; every output leaf with a leading axis of the rank's
-    tile count is gathered from all ranks, so each rank returns the whole
-    cube's outputs.
+    """A placement running fn on the block of this rank of `partition`
+    (parallel/partition.py, any layout): every array leaf of the arguments
+    with a leading axis of 6 and three or more dimensions is cut to the
+    rank's held box (under whole tiles, every such leaf of two or more
+    dimensions to its tiles), a `GridData` to the rank's grid (the edge
+    tables along their own axes), a `CubedSphereTopology` becomes the
+    rank's `RankTopology` and a `Domain` the rank's; every output leaf with
+    a leading axis of the rank's tile count is gathered from all ranks (the
+    owned boxes), so each rank returns the whole cube's outputs.
 
     With `comm` None, the ranks run one after another in this process and
     no halo exchange can take place: a check that fn (without halo
-    updates) does not depend on the tiles beside its own."""
+    updates) does not depend on the points beyond its held box."""
     from pace_torch.parallel.halo import RankTopology
 
-    if not partition.whole_tiles:
-        raise NotImplementedError("x/y layouts: ROADMAP item 11b")
     k = partition.tiles_per_rank
 
     def run_rank(fn, args, rank):
         def cut(leaf):
             if isinstance(leaf, CubedSphereTopology):
                 return RankTopology(partition, rank, comm)
-            return partition.scatter(leaf, rank) if _tiled(leaf, 6) else leaf
+            if isinstance(leaf, Domain):
+                return partition.domain(rank)
+            if isinstance(leaf, GridData):
+                return leaf.scattered(partition.scatterer(rank))
+            if not _tiled(leaf, 6):
+                return leaf
+            part = partition.scatter(leaf, rank)
+            # a block of a split tile is a strided view: the kernels take
+            # contiguous tensors
+            return (part.contiguous() if isinstance(part, torch.Tensor)
+                    else np.ascontiguousarray(part))
 
         return fn(*_map(tuple(args), cut))
 

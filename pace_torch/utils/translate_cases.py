@@ -37,6 +37,7 @@ from pace_torch.models.fv3.config import (
     get_column_namelist,
 )
 from pace_torch.parallel.topology import get_topology
+from pace_torch.utils.gridtools import Domain
 from pace_torch.utils.host import as_numpy, to_host
 from pace_torch.utils.translate import TranslateCase, VarSpec
 
@@ -81,6 +82,7 @@ class BaseOpCase(TranslateCase):
         self.config = config or DynamicalCoreConfig(do_sat_adj=False)
         self.n = sizing.n
         self.h = sizing.halo
+        self.dom = Domain.whole(sizing.n, sizing.halo)
         self.device = torch.device(device)
         self.torch_dtype = dtype
 
@@ -174,8 +176,8 @@ class TranslateXPPM(BaseOpCase):
         from pace_torch.ops.xppm import x_flux
 
         return {"xflux": x_flux(t["q"], t["c"],
-                                self.gd.horizontal.dxa[..., None], self.n,
-                                self.h, int(t["iord"]))}
+                                self.gd.horizontal.dxa[..., None],
+                                self.dom, int(t["iord"]))}
 
 
 @register("FvTp2d")
@@ -226,7 +228,7 @@ class TranslateFvTp2d(BaseOpCase):
 
         fx, fy = fv_tp_2d(
             t["q"], t["crx"], t["cry"], t["x_area_flux"], t["y_area_flux"],
-            self.gd, self.n, self.h, int(t["hord"]),
+            self.gd, self.dom, int(t["hord"]),
             x_mass_flux=t.get("x_mass_flux"),
             y_mass_flux=t.get("y_mass_flux"),
         )
@@ -276,7 +278,7 @@ class TranslateC_SW(BaseOpCase):
 
         (delpc, ptc, uc, vc, ua, va, ut, vt, divgd, _omga, delp_f, pt_f,
          w_f) = c_sw(t["delp"], t["pt"], t["u"], t["v"], t["w"], t["omga"],
-                     self.gd, self.n, self.h, float(t["dt2"]),
+                     self.gd, self.dom, float(t["dt2"]),
                      self.config.nord)
         return {"delp": delp_f, "pt": pt_f, "w": w_f, "uc": uc, "vc": vc,
                 "ua": ua, "va": va, "ut": ut, "vt": vt, "divgd": divgd,
@@ -351,7 +353,7 @@ class TranslateD_SW(BaseOpCase):
             t["ua"], t["va"], t["divgd"], t["mfx"], t["mfy"], t["cx"],
             t["cy"], t["q_con"], t["heat_source"], t["diss_est"],
             t.get("ut", zeros), t.get("vt", zeros), self.gd, col,
-            self.config, self.n, self.h, float(t["dt"]),
+            self.config, self.dom, float(t["dt"]),
         )
         result = {k: v for k, v in out.items() if k in self.out_vars}
         result["delpc"] = out["delpc"]
@@ -507,7 +509,7 @@ class TranslateUpdateDzD(BaseOpCase):
         height, ws = update_dz_d(
             t["surface_height"], t["height"], t["courant_number_x"],
             t["courant_number_y"], t["x_area_flux"], t["y_area_flux"],
-            self.gd, col, self.config, self.n, self.h, float(t["dt"]),
+            self.gd, col, self.config, self.dom, float(t["dt"]),
             _dp_ref(self.gd)[0],
         )
         return {"height": height, "ws": ws}
@@ -548,7 +550,7 @@ class TranslateNHPGrad(BaseOpCase):
 
         u, v, *_ = nh_p_grad(
             t["u"], t["v"], t["pp"], t["gz"], t["pk3"], t["delp"], self.gd,
-            self.n, self.h, float(t["dt"]), float(t["ptop"]),
+            self.dom, float(t["dt"]), float(t["ptop"]),
             float(t["akap"]),
         )
         return {"u": u, "v": v, "pp": t["pp"], "gz": t["gz"],
@@ -590,8 +592,7 @@ class TranslateTracer2D1L(BaseOpCase, _TracersMixin):
         out = tracer_advection(
             {name: t[name] for name in self.TRACERS}, t["dp1"], t["mfxd"],
             t["mfyd"], t["cxd"], t["cyd"], self.gd,
-            get_topology(self.n, self.h), self.n, self.h,
-            self.config.hord_tr,
+            get_topology(self.n, self.h), self.config.hord_tr,
         )
         result = {name: out[name] for name in self.TRACERS}
         result["mfxd"] = t["mfxd"]
@@ -789,7 +790,7 @@ class TranslateDel2Cubed(BaseOpCase):
         from pace_torch.ops.del2cubed import hyperdiffusion
 
         return {"qdel": hyperdiffusion(t["qdel"], self.gd, float(t["cd"]),
-                                       self.n, self.h, nmax=int(t["nmax"]))}
+                                       self.dom, nmax=int(t["nmax"]))}
 
 
 @register("DelnFlux")
@@ -835,7 +836,7 @@ class TranslateDelnFlux(BaseOpCase):
 
         fx, fy = deln_flux(
             t["q"], t["fx"], t["fy"], self.gd, np.asarray(t["nord_column"]),
-            np.asarray(t["damp_c"]), self.n, self.h, mass=t.get("mass"),
+            np.asarray(t["damp_c"]), self.dom, mass=t.get("mass"),
         )
         return {"fx": fx, "fy": fy}
 
@@ -890,7 +891,7 @@ class TranslateDel6VtFlux(BaseOpCase):
         fx2, fy2, d2 = deln_flux_nosg(
             t["q"], self.gd.damping.del6_u, self.gd.damping.del6_v,
             self.gd.horizontal.rarea, nord_col, np.asarray(damp_col),
-            self.n, self.h,
+            self.dom,
         )
         return {"fx2": fx2, "fy2": fy2, "d2": d2, "q": t["q"]}
 
@@ -942,7 +943,7 @@ class TranslateDivergenceDamping(BaseOpCase):
         c = self.config
         _vort, ke, delpc, _divg_d = divergence_damping(
             t["u"], t["v"], t["va"], t["ua"], t["divg_d"], t["vc"],
-            t["uc"], t["ke"], t["rel_vort_agrid"], self.gd, self.n, self.h,
+            t["uc"], t["ke"], t["rel_vort_agrid"], self.gd, self.dom,
             float(t["dt"]), c.dddmp, c.d4_bg, c.nord,
             np.asarray(t["nord_col"]), np.asarray(t["d2_bg"]),
         )
@@ -979,7 +980,7 @@ class TranslateA2BOrd4(BaseOpCase):
         if self.config.dddmp < 1e-5:
             vort = torch.zeros_like(t["vort"])
         else:
-            vort = a2b_ord4(t["wk"], self.gd, self.n, self.h)
+            vort = a2b_ord4(t["wk"], self.gd, self.dom)
         return {"wk": t["wk"], "vort": vort}
 
 
@@ -1031,7 +1032,7 @@ class TranslateFxAdv(BaseOpCase):
 
         crx, cry, xaf, yaf, ut, vt = fx_adv(
             t["uc"], t["vc"], t["uc_contra"], t["vc_contra"], self.gd,
-            self.n, self.h, float(t["dt"]),
+            self.dom, float(t["dt"]),
         )
         return {"uc_contra": ut, "vc_contra": vt, "x_area_flux": xaf,
                 "crx": crx, "y_area_flux": yaf, "cry": cry}
@@ -1069,8 +1070,7 @@ class TranslateD2A2CVect(BaseOpCase):
     def run(self, t):
         from pace_torch.ops.d2a2c import d2a2c_vect
 
-        uc, vc, ua, va, ut, vt = d2a2c_vect(t["u"], t["v"], self.gd, self.n,
-                                            self.h)
+        uc, vc, ua, va, ut, vt = d2a2c_vect(t["u"], t["v"], self.gd, self.dom)
         return {"uc": uc, "vc": vc, "ua": ua, "va": va, "utc": ut,
                 "vtc": vt}
 
@@ -1100,8 +1100,7 @@ class TranslateCubedToLatLon(BaseOpCase):
         from pace_torch.ops.c2l_ord import cubed_to_latlon
 
         ua, va, u, v = cubed_to_latlon(
-            t["u"], t["v"], self.gd, get_topology(self.n, self.h), self.n,
-            self.h, order=4,
+            t["u"], t["v"], self.gd, get_topology(self.n, self.h), order=4,
         )
         return {"ua": ua, "va": va, "u": u, "v": v}
 
@@ -1137,8 +1136,8 @@ class TranslateUpdateDzC(BaseOpCase):
 
         gz, ws = update_dz_c(
             self.tensor(_dp_ref(self.gd)[0]), t["zs"],
-            self.gd.horizontal.area, t["ut"], t["vt"], t["gz"], self.n,
-            self.h, float(t["dt2"]),
+            self.gd.horizontal.area, t["ut"], t["vt"], t["gz"], self.dom,
+            float(t["dt2"]),
         )
         return {"gz": gz, "ws": ws}
 
@@ -1165,8 +1164,7 @@ class TranslatePEHalo(BaseOpCase):
     def run(self, t):
         from pace_torch.ops.nh_p_grad import pe_halo
 
-        return {"pe": pe_halo(t["pe"], t["delp"], float(t["ptop"]), self.n,
-                              self.h)}
+        return {"pe": pe_halo(t["pe"], t["delp"], float(t["ptop"]), self.dom)}
 
 
 @register("PK3_Halo")
@@ -1193,7 +1191,7 @@ class TranslatePK3Halo(BaseOpCase):
         from pace_torch.ops.nh_p_grad import pk3_halo
 
         return {"pk3": pk3_halo(t["pk3"], t["delp"], float(t["ptop"]),
-                                float(t["akap"]), self.n, self.h)}
+                                float(t["akap"]), self.dom)}
 
 
 @register("Ray_Fast")
@@ -1463,7 +1461,7 @@ class TranslateXTPU(BaseOpCase):
         hz = self.gd.horizontal
         return {"flux": advect_u_along_x(
             t["u"], t["c"], hz.rdx[..., None], hz.dx[..., None],
-            hz.dxa[..., None], 1.0, self.n, self.h, self.config.hord_mt)}
+            hz.dxa[..., None], 1.0, self.dom, self.config.hord_mt)}
 
 
 @register("YTP_V")
@@ -1498,7 +1496,7 @@ class TranslateYTPV(BaseOpCase):
         hz = self.gd.horizontal
         return {"flux": advect_v_along_y(
             t["v"], t["c"], hz.rdy[..., None], hz.dy[..., None],
-            hz.dya[..., None], 1.0, self.n, self.h, self.config.hord_mt)}
+            hz.dya[..., None], 1.0, self.dom, self.config.hord_mt)}
 
 
 @register("YPPM")
@@ -1533,8 +1531,8 @@ class TranslateYPPM(BaseOpCase):
         from pace_torch.ops.xppm import y_flux
 
         return {"flux": y_flux(t["q"], t["c"],
-                               self.gd.horizontal.dya[..., None], self.n,
-                               self.h, int(t["jord"]))}
+                               self.gd.horizontal.dya[..., None],
+                               self.dom, int(t["jord"]))}
 
 
 @register("YPPM_2")
@@ -1565,7 +1563,7 @@ class TranslateCopyCorners(BaseOpCase):
     def run(self, t):
         from pace_torch.ops.corners import copy_corners
 
-        return {"q": copy_corners(t["q"], self.n, self.h,
+        return {"q": copy_corners(t["q"], self.dom,
                                   _DIRECTION[int(t["dir"])])}
 
 
@@ -1586,7 +1584,7 @@ class TranslateFill4Corners(BaseOpCase):
         from pace_torch.ops.corners import fill_corners_cells
 
         q = t["q4c"]
-        return {"q4c": fill_corners_cells(q, q, self.n, self.h,
+        return {"q4c": fill_corners_cells(q, q, self.dom,
                                           _DIRECTION[int(t["dir"])], 2)}
 
 
@@ -1622,7 +1620,7 @@ class TranslateFillCorners(BaseOpCase):
         from pace_torch.ops.corners import fill_corners_2d
 
         q = t["divg_d"]
-        filled = fill_corners_2d(q, self.n, self.h, "B",
+        filled = fill_corners_2d(q, self.dom, "B",
                                  _DIRECTION[int(t["dir"])])
         return {"divg_d": torch.where(_nord_mask(t, q), filled, q)}
 
@@ -1651,7 +1649,7 @@ class TranslateFillCornersVector(BaseOpCase):
         from pace_torch.ops.corners import fill_corners_dgrid
 
         vc, uc = t["vc"], t["uc"]
-        x, y = fill_corners_dgrid(vc, uc, self.n, self.h, vector=True)
+        x, y = fill_corners_dgrid(vc, uc, self.dom, vector=True)
         mask = _nord_mask(t, vc)
         return {"vc": torch.where(mask, x, vc),
                 "uc": torch.where(mask, y, uc)}
@@ -1831,8 +1829,7 @@ class TranslateDivergenceCorner(BaseOpCase):
         from pace_torch.ops.c_sw import divergence_corner
 
         return {"divg_d": divergence_corner(t["u"], t["v"], t["ua"],
-                                            t["va"], self.gd, self.n,
-                                            self.h)}
+                                            t["va"], self.gd, self.dom)}
 
 
 @register("Circulation_Cgrid")
@@ -1862,7 +1859,7 @@ class TranslateCirculationCgrid(BaseOpCase):
         from pace_torch.ops.c_sw import circulation_cgrid
 
         return {"vort_c": circulation_cgrid(t["uc"], t["vc"], self.gd,
-                                            self.n, self.h)}
+                                            self.dom)}
 
 
 @register("VorticityTransport_Cgrid")
@@ -1905,7 +1902,7 @@ class TranslateVorticityTransportCgrid(BaseOpCase):
 
         uc, vc = vorticity_transport_cgrid(
             t["uc"], t["vc"], t["vort_c"], t["ke_c"], t["u"], t["v"],
-            self.gd, self.n, self.h, float(t["dt2"]),
+            self.gd, self.dom, float(t["dt2"]),
         )
         return {"uc": uc, "vc": vc}
 
@@ -1949,7 +1946,7 @@ class _BKECase(BaseOpCase):
         # slots (translate_d_sw.py ubke/vbke call
         # interpolate_uc_vc_to_cell_corners(uc, vc, ..., ut, ut))
         ub_c, vb_c = _interpolate_uc_vc_to_corners(
-            t["uc"], t["vc"], adv, adv, self.gd, self.n, self.h)
+            t["uc"], t["vc"], adv, adv, self.gd, self.dom)
         out = ub_c if self.wind_out == "ub" else vb_c
         return {self.wind_out: out * (2.0 * float(t["dt5"]))}
 
@@ -2192,7 +2189,7 @@ class TranslateDynCore(BaseOpCase):
         s = {f: getattr(state, f) for f in FIELD_METADATA}
         s, cappa, wsd, _pem = acoustics.acoustic_dynamics(
             s, t["cappa"], self.gd, core.column_namelist, self.config,
-            core.topo, self.n, self.h, float(t["mdt"]), int(t["n_map"]),
+            core.topo, float(t["mdt"]), int(t["n_map"]),
             t["wsd"], core.vertical_params,
         )
         out = {name: s[name] for name in self.out_vars if name in s}

@@ -536,7 +536,7 @@ class TranslateFVUpdatePhys(BasePhysCase, _TracersMixin):
                                  "pk", "ps", "delp")}
         s, _u_srf, _v_srf = apply_physics_to_dycore(
             s, t["u_dt"], t["v_dt"], t["t_dt"], self.gd,
-            get_topology(self.n, self.h), self.n, self.h, c2l_order=4,
+            get_topology(self.n, self.h), c2l_order=4,
             dt=float(t["dt"]),
         )
         return {name: s[name] for name in self.out_vars}
@@ -606,5 +606,5 @@ class TranslateUpdateDWindsPhys(BasePhysCase):
 
         u, v = update_dwind_phys(
             t["u"], t["v"], t["u_dt"], t["v_dt"], self.gd,
-            get_topology(self.n, self.h), self.n, self.h, float(t["dt"]))
+            get_topology(self.n, self.h), float(t["dt"]))
         return {"u": u, "v": v}

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from pace_torch.testing import torch_threads
+from pace_torch.utils.gridtools import Domain
 
 N_, NZ, H, DT = 12, 79, 3, 225.0
 C = (slice(None), slice(H, H + N_), slice(H, H + N_))
@@ -149,15 +150,15 @@ def test_d_sw_with_skeb_matches_reference(inputs):
     col = get_column_namelist(config, NZ)
     t = {k: torch.as_tensor(v) for k, v in s.items()}
     csw = c_sw.c_sw(t["delp"], t["pt"], t["u"], t["v"], t["w"], t["omga"],
-                    gd, N_, H, DT / 4, config.nord)
+                    gd, Domain.whole(N_, H), DT / 4, config.nord)
     zeros = torch.zeros_like(t["delp"])
-    *_, ut, vt = fxadv.fx_adv(t["uc"], t["vc"], zeros, zeros, gd, N_, H,
-                              DT / 2)
+    *_, ut, vt = fxadv.fx_adv(t["uc"], t["vc"], zeros, zeros, gd,
+                              Domain.whole(N_, H), DT / 2)
     names = ("delp", "pt", "u", "v", "w", "uc", "vc", "ua", "va")
     args = ([t[k] for k in names] + [csw[8]]
             + [t[k] for k in ("mfxd", "mfyd", "cxd", "cyd", "q_con")]
             + [zeros, t["diss_estd"], ut, vt])
-    got = d_sw.d_sw(*args, gd, col, config, N_, H, DT / 2)
+    got = d_sw.d_sw(*args, gd, col, config, Domain.whole(N_, H), DT / 2)
     ref = jax.jit(lambda *a: ref_d_sw.d_sw(
         *a, ref_gd, col, ref_config, N_, H, DT / 2))(
         *[a.numpy() for a in args])
@@ -188,10 +189,10 @@ def test_dynamic_subcycle_matches_reference(inputs, trips):
     tracers = {k: s[k] for k in ("qvapor", "pt")}
 
     t = [torch.as_tensor(a) for a in fluxes]
-    assert tradv.subcycle_count(t[2], t[3], N_, H) == trips
+    assert tradv.subcycle_count(t[2], t[3], Domain.whole(N_, H)) == trips
     got = tradv.tracer_advection(
         {k: torch.as_tensor(v) for k, v in tracers.items()},
-        torch.as_tensor(s["delp"]), *t, gd, get_topology(N_, H), N_, H, 8,
+        torch.as_tensor(s["delp"]), *t, gd, get_topology(N_, H), 8,
         dynamic_subcycle=True)
     ref = jax.jit(lambda q, dp, *f: ref_tradv.tracer_advection(
         q, dp, *f, ref_gd, ref_topology(N_, H), N_, H, 8,

@@ -32,7 +32,7 @@ from pace_torch.models.fv3.state import DycoreState
 from pace_torch.models.physics.physics_state import PhysicsState
 from pace_torch.parallel.topology import get_topology
 from pace_torch.testing import torch_threads
-from pace_torch.utils.gridtools import GridSizing
+from pace_torch.utils.gridtools import Domain, GridSizing
 
 N_, NZ, H, DT = 12, 79, 3, 225.0
 DOM = (slice(None), slice(H, H + N_), slice(H, H + N_))
@@ -78,10 +78,12 @@ def _close(got, ref, tol=1e-12, where=DOM, label=""):
 
 def test_edge_neighbor_index_and_mask_equal_reference():
     N = 24
-    np.testing.assert_array_equal(udp._edge_neighbor_index(N_, H, N),
-                                  ref_udp._edge_neighbor_index(N_, H, N))
+    dom = Domain.whole(N_, H)
+    for axis in (1, 2):
+        np.testing.assert_array_equal(udp._edge_neighbor_index(dom, axis),
+                                      ref_udp._edge_neighbor_index(N_, H, N))
     np.testing.assert_array_equal(
-        uas.interior_mask(N, N_, H, device="cpu").numpy(),
+        uas.interior_mask(dom, device="cpu").numpy(),
         np.asarray(ref_uas.interior_mask(N, N_, H)))
 
 
@@ -96,7 +98,7 @@ def test_update_dwind_phys_matches_reference(grids, dycore_arrays):
         *(jnp.asarray(a) for a in (u, v, u_dt, v_dt)), ref_gd, ref_topo, N_,
         H, DT)
     got = udp.update_dwind_phys(
-        *(torch.tensor(a) for a in (u, v, u_dt, v_dt)), gd, topo, N_, H, DT)
+        *(torch.tensor(a) for a in (u, v, u_dt, v_dt)), gd, topo, DT)
     for g, r, stag, name in zip(got, ref, ((0, 1), (1, 0)), "uv"):
         where = (slice(None), slice(H, H + N_ + stag[0]),
                  slice(H, H + N_ + stag[1]))

@@ -51,14 +51,24 @@ def test_example_config_hydrates_as_in_the_reference(name):
 
 
 def test_multi_device_mesh_raises_at_the_driver_not_at_hydration():
+    """The pod configuration's [6, 4, 4] mesh builds its 96 ranks of
+    96 x 96-cell boxes; without a process group the Driver stops where
+    every multi-rank run without torchrun or a coordinator does."""
     from pace_torch.driver.driver import Driver, DriverConfig
+    from pace_torch.parallel.partition import Partition
 
     path = os.path.join(REPO, "examples", "configs",
                         "c384_multihost_emulator.yaml")
     config = DriverConfig.from_yaml(path)
     assert config.mesh.layout == (6, 4, 4)
     assert config.mesh.dcn_mesh_shape == (6, 1, 1)
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    partition = Partition(config.mesh.layout, config.nx_tile,
+                          dcn_mesh_shape=config.mesh.dcn_mesh_shape)
+    assert partition.size == config.mesh.ranks == 96
+    for rank in range(partition.size):
+        si, sj = partition.domain(rank).compute()
+        assert (si.stop - si.start, sj.stop - sj.start) == (96, 96)
+    with pytest.raises(RuntimeError, match="torchrun"):
         Driver(config, device="cpu")
 
 

@@ -120,6 +120,39 @@ def test_c12_f32_matches_reference_digest(runs):
 def _port_op_outputs(core, state, captured):
     """tests/golden/op_suite.compute_op_outputs on the port's modules;
     `captured` receives the riem_solver_c and p_grad_c inputs."""
+    return apply_op_suite(halo_updated_inputs(core, state), core.grid_data,
+                          core.topo, core.config, core.column_namelist,
+                          core.vertical_params, captured)
+
+
+def halo_updated_inputs(core, state):
+    """The operators' inputs: `state`'s fields with the acoustics entry
+    halo updates applied, as tests/golden/op_suite.build_inputs does."""
+    from pace_torch.parallel import halo as halo_mod
+
+    topo = core.topo
+    s = {name: getattr(state, name) for name in state.__dataclass_fields__}
+    center = topo.scalar_spec("center")
+    for name in ("delp", "pt", "w", "q_con", "omga"):
+        s[name] = halo_mod.halo_update_scalar(s[name], center)
+    s["u"], s["v"] = halo_mod.halo_update_vector(
+        topo, s["u"], s["v"], "y_iface", "x_iface")
+    s["uc"], s["vc"] = halo_mod.halo_update_vector(
+        topo, s["uc"], s["vc"], "x_iface", "y_iface")
+    return s
+
+
+def apply_op_suite(s, gd, topo, config, col, vp, captured, links=None):
+    """tests/golden/op_suite.compute_op_outputs' operators on the fields
+    `s` of the block of `topo.domain` (the whole tile, or a rank's part).
+    An operator's outputs that feed another are recorded into `links`, or,
+    where `links` holds them already, taken from there (so that each
+    operator on a block can be fed the whole run's values)."""
+    links = {} if links is None else links
+
+    def link(key, value):
+        return links.setdefault(key, value)
+
     from pace_torch.models.fv3.acoustics import _p_grad_c
     from pace_torch.models.fv3.state import NQ, TRACER_NAMES
     from pace_torch.ops import c_sw as c_sw_mod, d_sw as d_sw_mod
@@ -131,20 +164,9 @@ def _port_op_outputs(core, state, captured):
     from pace_torch.ops.c2l_ord import cubed_to_latlon
     from pace_torch.ops.fvtp2d import fv_tp_2d
     from pace_torch.ops.xppm import x_flux
-    from pace_torch.parallel import halo as halo_mod
     from pace_torch.utils import constants
 
-    gd, config, topo = core.grid_data, core.config, core.topo
-    col, vp = core.column_namelist, core.vertical_params
-    n, h, nz = N_, H, NZ
-    s = {name: getattr(state, name) for name in state.__dataclass_fields__}
-    center = topo.scalar_spec("center")
-    for name in ("delp", "pt", "w", "q_con", "omga"):
-        s[name] = halo_mod.halo_update_scalar(s[name], center)
-    s["u"], s["v"] = halo_mod.halo_update_vector(
-        topo, s["u"], s["v"], "y_iface", "x_iface")
-    s["uc"], s["vc"] = halo_mod.halo_update_vector(
-        topo, s["uc"], s["vc"], "x_iface", "y_iface")
+    dom, nz = topo.domain, NZ
     dt2 = DT / 4
     zeros = torch.zeros_like(s["delp"])
     out = {}
@@ -153,47 +175,50 @@ def _port_op_outputs(core, state, captured):
         out[name] = dict(zip(names, vals))
 
     csw = c_sw_mod.c_sw(s["delp"], s["pt"], s["u"], s["v"], s["w"],
-                        s["omga"], gd, n, h, dt2, config.nord)
+                        s["omga"], gd, dom, dt2, config.nord)
     rec("c_sw", ["delpc", "ptc", "uc", "vc", "ua", "va", "ut", "vt",
                  "divgd", "omga"], csw[:10])
-    crx, cry, xfx, yfx, ut, vt = fxadv.fx_adv(
-        s["uc"], s["vc"], zeros, zeros, gd, n, h, DT / 2)
-    rec("fx_adv", ["crx", "cry", "xfx", "yfx", "ut", "vt"],
-        [crx, cry, xfx, yfx, ut, vt])
+    csw = link("c_sw", csw)
+    fx_adv = fxadv.fx_adv(s["uc"], s["vc"], zeros, zeros, gd, dom, DT / 2)
+    rec("fx_adv", ["crx", "cry", "xfx", "yfx", "ut", "vt"], fx_adv)
+    crx, cry, xfx, yfx, ut, vt = link("fx_adv", fx_adv)
     rec("fv_tp_2d_damped", ["fx", "fy"],
-        fv_tp_2d(s["delp"], crx, cry, xfx, yfx, gd, n, h, 6,
+        fv_tp_2d(s["delp"], crx, cry, xfx, yfx, gd, dom, 6,
                  nord_col=col["nord_v"], damp_c_col=col["damp_vt"]))
     rec("xppm_x_flux", ["flux"],
-        [x_flux(s["pt"], crx, gd.horizontal.dxa[..., None], n, h, 8)])
+        [x_flux(s["pt"], crx, gd.horizontal.dxa[..., None], dom, 8)])
     dsw = d_sw_mod.d_sw(
         s["delp"], s["pt"], s["u"], s["v"], s["w"], s["uc"], s["vc"],
         s["ua"], s["va"], csw[8], s["mfxd"], s["mfyd"], s["cxd"],
         s["cyd"], s["q_con"], zeros, s["diss_estd"], ut, vt, gd, col,
-        config, n, h, DT / 2,
+        config, dom, DT / 2,
     )
     names = ["delp", "pt", "u", "v", "w", "q_con", "divgd", "delpc", "mfx",
              "mfy", "heat_source"]
     rec("d_sw", names, [dsw[k] for k in names])
 
     zs = s["phis"] * constants.RGRAV
-    gz = riemann.column_from_surface(zs, s["delz"])
+    gz = link("gz", riemann.column_from_surface(zs, s["delz"]))
     dp_ref = torch.as_tensor(vp["dp_ref"], dtype=gz.dtype)
     gzc, ws3 = updatedz.update_dz_c(dp_ref, zs, gd.horizontal.area, csw[6],
-                                    csw[7], gz, n, h, dt2)
+                                    csw[7], gz, dom, dt2)
     rec("update_dz_c", ["gz", "ws3"], [gzc, ws3])
+    gzc, ws3 = link("update_dz_c", (gzc, ws3))
     cappa = torch.full_like(s["delp"], 0.28)
     captured["riem_solver_c"] = (
         dt2, cappa, gd.vertical.ptop, s["phis"], ws3, csw[1], s["q_con"],
         csw[0], gzc, s["omga"], config.p_fac)
     gz2, pkc = riemann.riem_solver_c(*captured["riem_solver_c"])
     rec("riem_solver_c", ["gz", "pkc"], [gz2, pkc])
+    gz2, pkc = link("riem_solver_c", (gz2, pkc))
     captured["p_grad_c"] = (csw[2], csw[3], csw[0], pkc, gz2)
     rec("p_grad_c", ["uc", "vc"],
         _p_grad_c(*captured["p_grad_c"], gd, dt2))
     zh, wsd = updatedzd.update_dz_d(
-        zs, gz[..., :nz + 1], crx, cry, xfx, yfx, gd, col, config, n, h,
+        zs, gz[..., :nz + 1], crx, cry, xfx, yfx, gd, col, config, dom,
         DT / 2, vp["dp_ref"])
     rec("update_dz_d", ["zh", "wsd"], [zh, wsd])
+    zh, wsd = link("update_dz_d", (zh, wsd))
     r3 = riemann.riem_solver3(
         DT / 2, cappa, gd.vertical.ptop, zs, wsd, s["delz"], s["q_con"],
         s["delp"], s["pt"], zh, s["pe"], torch.zeros_like(s["pe"]), s["pk"],
@@ -201,27 +226,28 @@ def _port_op_outputs(core, state, captured):
         last_call=True)
     rec("riem_solver3", ["delz", "zh", "pe", "pkc", "pk3", "pk", "peln",
                          "w"], r3)
+    r3 = link("riem_solver3", r3)
     un, vn, _, _, _ = nhpg.nh_p_grad(
         s["u"], s["v"], r3[3], r3[1] * constants.GRAV, r3[4], s["delp"], gd,
-        n, h, DT / 2, gd.vertical.ptop, constants.KAPPA)
+        dom, DT / 2, gd.vertical.ptop, constants.KAPPA)
     rec("nh_p_grad", ["u", "v"], [un, vn])
-    rec("a2b_ord4", ["qb"], [a2b_ord4(s["pt"], gd, n, h)])
+    rec("a2b_ord4", ["qb"], [a2b_ord4(s["pt"], gd, dom)])
     rec("del2_cubed", ["q"],
-        [del2cubed.hyperdiffusion(s["omga"], gd, 0.2, n, h, nmax=2)])
+        [del2cubed.hyperdiffusion(s["omga"], gd, 0.2, dom, nmax=2)])
     adv = tradv.tracer_advection(
         {name: s[name] for name in TRACER_NAMES[:NQ]}, s["delp"], s["mfxd"],
-        s["mfyd"], s["cxd"], s["cyd"], gd, topo, n, h, config.hord_tr)
+        s["mfyd"], s["cxd"], s["cyd"], gd, topo, config.hord_tr)
     rec("tracer_advection", sorted(adv), [adv[k] for k in sorted(adv)])
     rm = remapping.lagrangian_to_eulerian(
         {name: s[name] for name in remapping.REMAP_TRACERS}, s["pt"],
         s["delp"], s["delz"], s["peln"], s["u"], s["v"], s["w"], cappa,
         s["q_con"], s["pkz"], s["pk"], s["pe"], s["phis"], s["ps"],
-        torch.zeros_like(s["ps"]), gd, config, n, h, True, config.consv_te,
-        DT)
+        torch.zeros_like(s["ps"]), gd, config, dom.n, dom.h, True,
+        config.consv_te, DT)
     rec("remapping", ["pt", "delp", "delz", "u", "v", "w", "pkz", "qvapor"],
         [rm["pt"], rm["delp"], rm["delz"], rm["u"], rm["v"], rm["w"],
          rm["pkz"], rm["tracers"]["qvapor"]])
-    ua2, va2, _, _ = cubed_to_latlon(s["u"], s["v"], gd, topo, n, h, order=4)
+    ua2, va2, _, _ = cubed_to_latlon(s["u"], s["v"], gd, topo, order=4)
     rec("c2l_ord4", ["ua", "va"], [ua2, va2])
     return out
 

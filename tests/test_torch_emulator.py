@@ -175,3 +175,20 @@ def test_wrong_device_raises():
                                          "meta", torch.float32)
     with pytest.raises(ValueError):
         model(state)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_rows_do_not_depend_on_the_count(compute_dtype):
+    """A block of columns gets the results it gets among more columns: the
+    products take BLOCK_ROWS rows at a time, whatever the tensor holds."""
+    net = em.MicrophysicsEmulator(
+        em.MLPEmulatorConfig(hidden_sizes=(32, 32), seed=11,
+                             compute_dtype=compute_dtype), 8, device="cpu")
+    g = torch.Generator().manual_seed(7)
+    for key in list(net.weights):
+        net.weights[key].data.copy_(torch.randn(
+            net.weights[key].shape, generator=g))
+    x = torch.randn(6, 30, 30, 8 * len(em.INPUT_FIELDS), generator=g)
+    whole = net._forward(x)
+    block = (slice(0, 3), slice(11, 30), slice(13, 30))
+    assert torch.equal(net._forward(x[block].contiguous()), whole[block])

@@ -16,6 +16,7 @@ import torch
 
 from pace_torch.testing import torch_threads
 from pace_torch.utils import debug
+from pace_torch.utils.gridtools import Domain
 
 N_, NZ, H = 12, 79, 3
 
@@ -163,7 +164,7 @@ def test_no_checkpointer_touches_nothing():
     from pace_torch.utils import checkpointer
 
     assert checkpointer._ACTIVE is None
-    checkpointer.checkpoint("FVDynamics-In", sizing=(N_, H),
+    checkpointer.checkpoint("FVDynamics-In", domain=Domain.whole(N_, H),
                             u=Untouchable())
     with checkpointer.checkpointing(checkpointer.NullCheckpointer()):
         checkpointer.checkpoint("FVDynamics-In", u=Untouchable())
@@ -176,68 +177,94 @@ def test_host_check_raises_with_stage_and_field():
     good = np.ones((6, 10, 10, 4))
     bad = np.ones((6, 10, 10, 4))
     bad[2, 5, 5, 1] = np.nan
-    debug._host_check("stage_a", 4, 3, ("x",), good)
+    dom = Domain.whole(4, 3)
+    debug._host_check("stage_a", dom, ("x",), good)
     with pytest.raises(debug.NaNDetected, match=r"stage_b.*field 'y'"):
-        debug._host_check("stage_b", 4, 3, ("x", "y"), good, bad)
+        debug._host_check("stage_b", dom, ("x", "y"), good, bad)
 
 
 def test_halo_padding_nans_ignored():
     n, h = 4, 3
+    dom = Domain.whole(n, h)
     arr = np.ones((6, 16, 16, 2))
     arr[:, 0, 0, :] = np.nan
     arr[:, h + n + 1:, :, :] = np.nan
-    debug._host_check("stage", n, h, ("f",), arr)
+    debug._host_check("stage", dom, ("f",), arr)
     # and through the hook on a tensor
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(debug, "NANCHECK_ENABLED", True)
-        debug.nancheck("stage", n, h, f=torch.as_tensor(arr))
+        debug.nancheck("stage", dom, f=torch.as_tensor(arr))
 
 
 def test_nancheck_noop_when_disabled():
     assert not debug.NANCHECK_ENABLED and not debug.STATECHECK_ENABLED
-    debug.nancheck("s", 4, 3, x=Untouchable())
+    debug.nancheck("s", Domain.whole(4, 3), x=Untouchable())
 
 
 def test_nancheck_fires_on_a_tensor(monkeypatch):
     monkeypatch.setattr(debug, "NANCHECK_ENABLED", True)
     n, h = 4, 3
+    dom = Domain.whole(n, h)
     x = torch.ones((6, 16, 16))
     y = torch.where(x > 0, torch.nan, x)
     with pytest.raises(debug.NaNDetected, match="poisoned"):
-        debug.nancheck("poisoned", n, h, y=y)
+        debug.nancheck("poisoned", dom, y=y)
 
 
 def test_statecheck_negative_delp(monkeypatch):
     monkeypatch.setattr(debug, "STATECHECK_ENABLED", True)
     n, h = 4, 3
+    dom = Domain.whole(n, h)
     good = np.full((6, 16, 16, 2), 10.0)
     bad = good.copy()
     bad[1, h + 1, h + 2, 0] = -1.0
-    debug._host_check("stage", n, h, ("delp",), good)
+    debug._host_check("stage", dom, ("delp",), good)
     with pytest.raises(debug.NegativeValueDetected,
                        match=r"negative delp.*'delp'"):
-        debug.statecheck("stage", n, h, delp=torch.as_tensor(bad))
+        debug.statecheck("stage", dom, delp=torch.as_tensor(bad))
     pad = good.copy()
     pad[:, 0, 0, :] = -5.0
-    debug._host_check("stage", n, h, ("delp",), pad)
+    debug._host_check("stage", dom, ("delp",), pad)
 
 
 def test_statecheck_negative_tracer(monkeypatch):
     monkeypatch.setattr(debug, "STATECHECK_ENABLED", True)
     n, h = 4, 3
+    dom = Domain.whole(n, h)
     roundoff = np.full((6, 16, 16, 2), 1e-6)
     roundoff[2, h, h, 1] = -5e-9
-    debug._host_check("s", n, h, ("qvapor",), roundoff)
+    debug._host_check("s", dom, ("qvapor",), roundoff)
     bad = roundoff.copy()
     bad[2, h, h, 1] = -1e-3
     with pytest.raises(debug.NegativeValueDetected,
                        match=r"negative tracer.*'qvapor'"):
-        debug._host_check("s", n, h, ("qvapor",), bad)
-    debug._host_check("s", n, h, ("u",), np.full((6, 16, 16, 2), -40.0))
+        debug._host_check("s", dom, ("qvapor",), bad)
+    debug._host_check("s", dom, ("u",), np.full((6, 16, 16, 2), -40.0))
 
 
 def test_statecheck_disabled_means_finite_only():
     assert not debug.STATECHECK_ENABLED
     n, h = 4, 3
+    dom = Domain.whole(n, h)
     neg = np.full((6, 16, 16, 2), -1.0)
-    debug._host_check("s", n, h, ("delp", "qvapor"), neg, neg)
+    debug._host_check("s", dom, ("delp", "qvapor"), neg, neg)
+
+
+def test_nancheck_on_a_split_rank_reads_its_owned_cells(monkeypatch):
+    """On the north-east rank of (1, 2, 2) the hook reads the compute cells
+    the rank owns: NaN in the block's halo lines and at the tile's
+    corner-wedge point (h + n, h + n) passes, NaN in an owned cell
+    raises."""
+    from pace_torch.parallel.partition import Partition
+
+    monkeypatch.setattr(debug, "NANCHECK_ENABLED", True)
+    dom = Partition((1, 2, 2), N_, H).domain(3)
+    si, sj = dom.compute()
+    arr = torch.ones((6, dom.Ni, dom.Nj, 2))
+    arr[:, :si.start] = torch.nan
+    arr[:, :, :sj.start] = torch.nan
+    arr[:, dom.col(H + N_), dom.row(H + N_)] = torch.nan
+    debug.nancheck("stage", dom, f=arr)
+    arr[4, si.stop - 1, sj.start] = torch.nan
+    with pytest.raises(debug.NaNDetected, match="2 bad points"):
+        debug.nancheck("stage", dom, f=arr)

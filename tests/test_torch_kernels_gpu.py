@@ -14,13 +14,16 @@ import numpy as np
 import pytest
 import torch
 
+from pace_torch.parallel.partition import Partition
 from pace_torch.testing import (
     TRANSPORT_KEYS, fillz_inputs, plant_fillz_hazards, sim1_inputs,
     transport_inputs,
 )
+from pace_torch.utils.gridtools import Domain
 
 pytestmark = pytest.mark.gpu
 N_, H = 12, 3
+DOM = Domain.whole(N_, H)
 DTYPES = [torch.float64, torch.float32]
 
 
@@ -59,8 +62,8 @@ def test_transport_kernel(cuda, dtype, T, nz, hord):
     arrays = transport_inputs(N_, nz, T)
     args = [torch.as_tensor(arrays[k], dtype=dtype, device=cuda)
             for k in TRANSPORT_KEYS]
-    plain = fvtp2d.transport_batched_plain(*args, N_, H, hord)
-    kern = fvtp2d.transport_batched_cuda(*args, N_, H, hord)
+    plain = fvtp2d.transport_batched_plain(*args, DOM, hord)
+    kern = fvtp2d.transport_batched_cuda(*args, DOM, hord)
     region = (slice(None),) * 2 + (slice(H, H + N_ + 1),) * 2
     bar = 1e-12 if dtype == torch.float64 else 1e-5
     assert _err(kern, plain, region) <= bar
@@ -145,8 +148,8 @@ def test_transport_kernel_at_a_ranks_tiles(cuda, dtype, tiles):
         np.ascontiguousarray(arrays[k][:, :tiles] if k in ("q_y", "q_x")
                              else arrays[k][:tiles]),
         dtype=dtype, device=cuda) for k in TRANSPORT_KEYS]
-    want = fvtp2d.transport_batched_plain(*args, N_, H, 8)
-    got = fvtp2d.transport_batched_cuda(*args, N_, H, 8)
+    want = fvtp2d.transport_batched_plain(*args, DOM, 8)
+    got = fvtp2d.transport_batched_cuda(*args, DOM, 8)
     torch.cuda.synchronize()
     assert _err(got, want) <= (1e-12 if dtype == torch.float64 else 1e-5)
 
@@ -168,3 +171,45 @@ def test_cumulative_sums_do_not_depend_on_the_size(cuda, dtype):
                        cumsum_k(q[2:3, :8, :8].contiguous()))
     if dtype == torch.float64:
         assert torch.equal(whole.cpu(), torch.cumsum(q.cpu(), -1))
+
+
+def test_emulator_rows_do_not_depend_on_the_count(cuda):
+    """The MLP emulator gives a rank's block of C96 columns the results
+    they get among the whole cube's: its matrix products take
+    BLOCK_ROWS rows at a time (a cuBLAS product of another row count sums
+    in another order)."""
+    from pace_torch.models.physics import emulator
+
+    net = emulator.MicrophysicsEmulator(
+        emulator.MLPEmulatorConfig(hidden_sizes=(256, 256, 256), seed=11),
+        79, device=cuda)
+    g = torch.Generator().manual_seed(7)
+    for key in list(net.weights):
+        net.weights[key].data.copy_(torch.randn(
+            net.weights[key].shape, generator=g))
+    x = torch.randn(6, 104, 104, 79 * len(emulator.INPUT_FIELDS),
+                    generator=g).to(cuda)
+    whole = net._forward(x)
+    block = (slice(0, 3), slice(47, 104), slice(49, 104))
+    assert torch.equal(net._forward(x[block].contiguous()), whole[block])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layout,rank", [((1, 2, 4), 0), ((1, 2, 4), 5),
+                                         ((6, 4, 4), 0)])
+def test_transport_kernel_on_a_split_block(cuda, dtype, layout, rank):
+    """K-T on the block a rank of an x/y layout holds (non-square, edge
+    lines on some sides only) against its plain version at C48."""
+    from pace_torch.ops import fvtp2d
+
+    partition = Partition(layout, 48)
+    dom, box = partition.domain(rank), partition.local_box(rank)
+    arrays = transport_inputs(48, 79, 3)
+    args = [torch.as_tensor(np.ascontiguousarray(
+        arrays[k][(slice(None),) + box.index] if k in ("q_y", "q_x")
+        else arrays[k][box.index]), dtype=dtype, device=cuda)
+        for k in TRANSPORT_KEYS]
+    want = fvtp2d.transport_batched_plain(*args, dom, 8)
+    got = fvtp2d.transport_batched_cuda(*args, dom, 8)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= (1e-12 if dtype == torch.float64 else 1e-5)

@@ -54,7 +54,8 @@ for name in ("ops.saturation_adjustment", "ops.fv_subgridz",
              "utils.translate_cases", "utils.translate_cases_grid",
              "utils.translate_cases_physics", "driver.tools", "ops.bounds",
              "_native.fastpack", "parallel.partition", "parallel.comm",
-             "parallel.halo", "parallel.traffic", "utils.pair_debug"):
+             "parallel.halo", "parallel.traffic", "utils.pair_debug",
+             "utils.gridtools"):
     assert "pace_torch." + name in walked, name
 from pace_torch.grid.generation import generate_grid_data
 from pace_torch.models.fv3.config import DynamicalCoreConfig

@@ -87,3 +87,33 @@ def test_dataclass_leaves_nan_equal_and_window():
                                                    f(*args).b),
         atol=1.0, window=lambda a: a[:, 3:5, 3:5])
     assert shifted == {"a": 0.5, "b": 0.0}
+
+
+@pytest.mark.parametrize("layout", [(1, 2, 2), (2, 2, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_layout_placement_splits_tiles_along_x_and_y(layout):
+    """Under an x/y layout the placement hands each rank its block: the
+    state's fields cut to its held box, the grid with its edge tables cut
+    along their own axes, the rank's Domain; the ranks' owned boxes,
+    gathered, equal the whole cube's result (here a2b_ord4 and d2a2c,
+    whose tile-edge forms and corner fills need no halo update on these
+    inputs)."""
+    from pace_torch.grid.generation import generate_grid_data
+    from pace_torch.models.fv3.init.baroclinic import init_baroclinic_state
+    from pace_torch.ops.a2b_ord4 import a2b_ord4
+    from pace_torch.ops.d2a2c import d2a2c_vect
+    from pace_torch.utils.gridtools import Domain, GridSizing
+
+    sizing = GridSizing(12, 5)
+    grid = generate_grid_data(12, 79, device="cpu", dtype=torch.float64)
+    state = init_baroclinic_state(GridSizing(12, 79), device="cpu",
+                                  dtype=torch.float64)
+
+    def fn(pt, u, v, grid, dom):
+        return (a2b_ord4(pt, grid, dom),) + d2a2c_vect(u, v, grid, dom)
+
+    report = compare_under_placements(
+        fn, (state.pt[..., :sizing.nz], state.u[..., :sizing.nz],
+             state.v[..., :sizing.nz], grid, Domain.whole(12)),
+        replicated, layout_placement(Partition(layout, 12)))
+    assert report == {str(i): 0.0 for i in range(7)}

@@ -250,12 +250,16 @@ def test_layout_validation():
         check_layout((6, 1, 1), (4, 1, 1))
     with pytest.raises(ValueError, match="divide C12"):
         Partition((1, 5, 1), N_)
-    for layout in ((6, 4, 4), (1, 2, 4), (2, 2, 2)):
-        with pytest.raises(NotImplementedError, match="item 11b"):
+    # a box narrower than the halo: C12 in 6 parts along y is 2 cells wide
+    for layout in ((1, 1, 6), (6, 6, 1)):
+        with pytest.raises(ValueError, match="12 x 2|2 x 12"):
+            Partition(layout, N_)
+        with pytest.raises(ValueError, match="narrower than the halo"):
             MeshConfig(layout=layout).build(N_, H, "cpu")
     assert MeshConfig(layout=(1, 1, 1)).build(N_, H, "cpu") is None
-    with pytest.raises(RuntimeError, match="torchrun"):
-        MeshConfig(layout=(2, 1, 1)).build(N_, H, "cpu")
+    for layout in ((2, 1, 1), (6, 4, 4), (1, 2, 4), (2, 2, 2)):
+        with pytest.raises(RuntimeError, match="torchrun"):
+            MeshConfig(layout=layout).build(N_, H, "cpu")
 
 
 def test_ranks_are_host_major_and_cover_the_cube():
@@ -282,3 +286,63 @@ def test_scatter_then_gather_is_the_identity(layout, fields):
     numpy_parts = [partition.scatter(q.numpy(), r)
                    for r in range(partition.size)]
     assert np.array_equal(partition.gather(numpy_parts), q.numpy())
+
+
+@pytest.mark.parametrize("layout", [(1, 2, 4), (6, 4, 4)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_edge_tables_scatter_along_their_axis(layout):
+    """The grid's (6, N) edge tables: a rank's part is its tiles and its
+    held range along the axis the table runs along, and the owned ranges
+    gather back to the table."""
+    from pace_torch.grid.generation import EDGE_TABLE_AXIS
+
+    partition = Partition(layout, N_, H)
+    table = np.random.RandomState(3).randn(6, partition.N)
+    for axis in set(EDGE_TABLE_AXIS.values()):
+        back = np.full_like(table, np.nan)
+        for rank in range(partition.size):
+            b, lb = partition.box(rank), partition.local_box(rank)
+            lo, hi = (lb.i0, lb.i1) if axis == 1 else (lb.j0, lb.j1)
+            part = partition.scatter(table, rank, axis=axis)
+            assert np.array_equal(part, table[b.t0:b.t1, lo:hi])
+            own = (b.i0, b.i1) if axis == 1 else (b.j0, b.j1)
+            back[b.t0:b.t1, own[0]:own[1]] = part[:, own[0] - lo:own[1] - lo]
+        assert np.array_equal(back, table)
+    with pytest.raises(ValueError, match="axis"):
+        partition.scatter(table, 0)
+
+
+def test_a_ranks_domain():
+    """The block each rank holds, as the operators see it: under whole
+    tiles the tile's own lines h and h + n on every side; under (1, 2, 2)
+    the tile's edge lines on the sides its box shares with the tile and
+    none on the sides that border another rank, the held block its box
+    and depth = h + 1 lines around it, and its owned compute cells."""
+    from pace_torch.utils.gridtools import Domain
+
+    whole = Domain.whole(N_, H)
+    for dom in [whole] + [Partition(layout, N_, H).domain(r)
+                          for layout in ((2, 1, 1), (6, 1, 1))
+                          for r in range(layout[0])]:
+        assert (dom.col(H), dom.col(H + N_), dom.row(H), dom.row(H + N_),
+                dom.edge_lines(1), dom.edge_lines(2)) == (
+            H, H + N_, H, H + N_, (H, H + N_), (H, H + N_))
+        assert dom.compute() == (slice(H, H + N_),) * 2
+        assert dom.is_whole and dom.col(slice(H, H + N_)) == slice(H, H + N_)
+    partition = Partition((1, 2, 2), N_, H)
+    assert partition.depth == H + 1
+    sw, ne = partition.domain(0), partition.domain(3)
+    assert (sw.Ni, sw.Nj, ne.Ni, ne.Nj) == (13, 13, 19, 19)
+    # the tile's edge lines the block holds, None where it borders a rank
+    assert (sw.col(H), sw.col(H + N_), sw.row(H), sw.row(H + N_)) == (
+        H, None, H, None)
+    # ne holds storage points [5, 24) along i and j
+    assert (ne.col(H), ne.col(H + N_), ne.row(H), ne.row(H + N_)) == (
+        None, 10, None, 10)
+    assert ne.edge_lines(1) == ne.edge_lines(2) == (H - 5, 10)
+    assert sw.compute() == (slice(3, 9), slice(3, 9))
+    assert ne.compute(iface_x=True) == (slice(4, 11), slice(4, 10))
+    # storage indices mapped into the block, dropped outside it
+    assert (ne.col(H + N_), ne.col(H), ne.col(slice(0, 12))) == (
+        10, None, slice(0, 7))
+    assert ne.col(slice(0, 4)) is None

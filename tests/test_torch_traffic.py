@@ -199,7 +199,7 @@ def test_record_tracer_advection_then_replay_one_tile(topo):
         fields = [torch.tensor(a[cut]) for a in arrays]
         tracers = {"qvapor": fields[0], "qcld": fields[1]}
         return tradv.tracer_advection(tracers, *fields[2:7], grid, topo,
-                                      N_, H, hord_tr=8)
+                                      hord_tr=8)
 
     rec = HaloTrafficRecorder.recording()
     with rec:

@@ -15,9 +15,12 @@ from pace_tpu.grid.generation import generate_grid_data
 from pace_tpu.ops.fvtp2d import fv_tp_2d
 from pace_tpu.ops.pallas import fvtp2d_pallas
 from pace_torch.ops import fvtp2d as port_fvtp2d
+from pace_torch.parallel.partition import Partition
 from pace_torch.testing import TRANSPORT_KEYS, transport_inputs
+from pace_torch.utils.gridtools import Domain
 
 N_, H, NZ, T = 12, 3, 8, 3
+DOM = Domain.whole(N_, H)
 TOL = dict(rtol=1e-12, atol=1e-12)
 # the limiter classes: smt5 as bl*br < 0 (5), the other monotone form (6),
 # ord 8, and ord 10 (ord-8 limiter, inner passes at 8)
@@ -44,7 +47,7 @@ def jax_grid():
 
 def _port(inputs, hord):
     args = [torch.as_tensor(inputs[k]) for k in TRANSPORT_KEYS]
-    fx, fy = port_fvtp2d.transport_batched(*args, N_, H, hord)
+    fx, fy = port_fvtp2d.transport_batched(*args, DOM, hord)
     return fx.numpy(), fy.numpy()
 
 
@@ -84,10 +87,10 @@ def test_port_metrics_match_reference(inputs, jax_grid):
 @pytest.mark.parametrize("hord", HORDS)
 def test_kernel_wrapper_takes_every_order(inputs, monkeypatch, hord):
     """The CUDA wrapper launches the kernel at every PPM order the plain
-    version computes, with the tile count of its inputs (6, or the 1, 2
-    or 3 tiles of a rank), and still refuses a bad shape before it
-    launches.  The launch itself is recorded instead of made (no card
-    here)."""
+    version computes, with the tile count of its inputs (6, or any count
+    a rank holds) and the block's extents and edge lines, and still
+    refuses a shape its domain does not give before it launches.  The
+    launch itself is recorded instead of made (no card here)."""
     from pace_torch.ops import _cuda
 
     launched = []
@@ -96,22 +99,33 @@ def test_kernel_wrapper_takes_every_order(inputs, monkeypatch, hord):
                             (name, len(t), ints)))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
     args = [torch.as_tensor(inputs[k]) for k in TRANSPORT_KEYS]
-    fx, fy = port_fvtp2d.transport_batched_cuda(*args, N_, H, hord)
+    fx, fy = port_fvtp2d.transport_batched_cuda(*args, DOM, hord)
     assert fx.shape == fy.shape == args[0].shape
     N = args[0].shape[2]
-    assert launched == [("fvtp2d", 13, (T, 6, N, NZ, N_, H, hord))]
+    lines = (H, H + N_, H, H + N_)
+    assert launched == [("fvtp2d", 13, (T, 6, N, N, NZ, *lines, hord))]
     with pytest.raises(ValueError):
         port_fvtp2d.transport_batched_cuda(args[0][:, :, 1:].contiguous(),
-                                           *args[1:], N_, H, hord)
+                                           *args[1:], DOM, hord)
     assert len(launched) == 1
 
     def tiles(a, k):
         return (a[:, :k] if a.shape[0] == T else a[:k]).contiguous()
 
-    port_fvtp2d.transport_batched_cuda(*(tiles(a, 3) for a in args), N_, H,
+    port_fvtp2d.transport_batched_cuda(*(tiles(a, 3) for a in args), DOM,
                                        hord)
-    assert launched[-1] == ("fvtp2d", 13, (T, 3, N, NZ, N_, H, hord))
-    with pytest.raises(ValueError):
-        port_fvtp2d.transport_batched_cuda(*(tiles(a, 4) for a in args),
-                                           N_, H, hord)
-    assert len(launched) == 2
+    assert launched[-1] == ("fvtp2d", 13, (T, 3, N, N, NZ, *lines, hord))
+    port_fvtp2d.transport_batched_cuda(*(tiles(a, 4) for a in args), DOM,
+                                       hord)
+    assert launched[-1] == ("fvtp2d", 13, (T, 4, N, N, NZ, *lines, hord))
+    # rank 5 of (1, 2, 4): the block of storage points [5, 24) x [2, 13),
+    # whose box has the tile's east edge; the tile's edge lines at local
+    # i -2 (outside) and 10, j 1 (in its halo) and 13 (outside)
+    partition = Partition((1, 2, 4), N_, H)
+    dom, box = partition.domain(5), partition.local_box(5)
+    port_fvtp2d.transport_batched_cuda(
+        *((a[(slice(None),) + box.index] if a.shape[0] == T
+           else a[box.index]).contiguous() for a in args), dom, hord)
+    assert launched[-1] == ("fvtp2d", 13, (T, 6, 19, 11, NZ, -2, 10, 1, 13,
+                                           hord))
+    assert len(launched) == 4
