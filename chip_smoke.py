@@ -110,7 +110,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      each rank); then c384_multihost_emulator.yaml cut to nx_tile 24,
      layout [6, 2, 2], multihost false and 2 steps through `torchrun -m
      pace_torch.driver.run` (24 ranks), its files against the one-rank run
-     of the same cut yaml.
+     of the same cut yaml;
+  16. each rank builds only its own block of the initial state: ranks 0,
+     1, 5 and 95 of c384_multihost_emulator.yaml's [6, 4, 4] mesh at n =
+     384 (a tile's south-west corner, a west edge, an interior box, tile
+     5's north-east corner), each built alone in a process of its own
+     (`chip_smoke.py --local-build DIR RANK`), grid and state float32 on
+     the card, and the whole cube built as one process builds it: each
+     rank's float64 host arrays identical to the whole cube's cut, every
+     leaf; the host memory each rank's build adds to its process below a
+     fifth of what the whole cube's adds (with seconds and device bytes);
+     then that yaml cut to nx_tile 96 at [6, 2, 2] (24 ranks of 48 x 48
+     cells; at 192 the 24 ranks outgrow the card), 2 steps through
+     `torchrun -m pace_torch.driver.run` against its one-rank run (which
+     runs beside 16.1), each rank's host and card peaks and
+     initialization from the perf JSON.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -468,11 +482,12 @@ def check_split_shapes():
 # phases 3 to 6: the dycore step
 # ---------------------------------------------------------------------------
 
-def make_core(n, dtype, dt, device="cuda", scatter=None, topology=None,
+def make_core(n, dtype, dt, device="cuda", part=None, topology=None,
               **settings):
     """A baroclinic C`n`/79 dycore and its start: of the whole cube, or
-    with `scatter` (`Partition.scatterer(rank)`) and a rank `topology`, of
-    one rank's tiles."""
+    with `part` (`Partition.part(rank)`) and a rank `topology`, of one
+    rank's block (the grid cut from the whole cube's, the state built on
+    the block alone)."""
     from pace_torch.grid.generation import generate_grid_data
     from pace_torch.models.fv3.config import DynamicalCoreConfig
     from pace_torch.models.fv3.dynamics import DynamicalCore
@@ -481,11 +496,11 @@ def make_core(n, dtype, dt, device="cuda", scatter=None, topology=None,
 
     sizing = GridSizing(n, 79)
     gd = generate_grid_data(n, 79, device=device, dtype=dtype,
-                            scatter=scatter)
+                            scatter=None if part is None else part.cut)
     config = DynamicalCoreConfig(do_sat_adj=False, **settings)
     core = DynamicalCore(config, sizing, gd, timestep=dt, topology=topology)
     state = init_baroclinic_state(sizing, device=device, dtype=dtype,
-                                  scatter=scatter)
+                                  part=part)
     return sizing, core, state
 
 
@@ -1998,7 +2013,7 @@ def rank_c192(comm, device, n=192):
     t0 = time.perf_counter()
     sizing, core, state = make_core(
         n, torch.float32, 225.0, device=device,
-        scatter=partition.scatterer(rank),
+        part=partition.part(rank),
         topology=RankTopology(partition, rank, comm), **C192)
     setup = time.perf_counter() - t0
     state = core.step_dynamics(state)
@@ -2121,6 +2136,14 @@ def torchrun(args, cwd, timeout, ranks=RANKS,
             mine = [line for line in proc.stderr.splitlines()
                     if line.startswith(f"[rank{first.group(1)}]")]
             log("\n".join(mine[-80:]))
+        # every rank's own last line: the exception each one raised
+        last = {}
+        for line in proc.stderr.splitlines():
+            rank = re.match(r"\[rank(\d+)\]:\s*(\S.*)", line)
+            if rank is not None:
+                last[int(rank.group(1))] = rank.group(2)
+        for rank in sorted(last):
+            log(f"rank {rank}: {last[rank][:300]}")
         log(proc.stderr[-6000:])
         raise AssertionError(f"torchrun {' '.join(args)}: exit code "
                              f"{proc.returncode}")
@@ -2141,8 +2164,8 @@ def check_replay(card) -> None:
     recorder.save(path)
     tile = 2
     _, solo_core, solo = make_core(12, torch.float64, 225.0,
-                                   scatter=Partition((6, 1, 1), 12)
-                                   .scatterer(tile))
+                                   part=Partition((6, 1, 1), 12)
+                                   .part(tile))
     reset_launches()
     with HaloTrafficRecorder.load(path).replaying(tile=tile):
         solo = solo_core.step_dynamics(solo)
@@ -2410,9 +2433,9 @@ def split_rank_main(out: str) -> None:
     dist.destroy_process_group()
 
 
-def run_split_ranks(card) -> dict:
+def run_split_ranks(card) -> tuple:
     """Phase 15.  Returns each kernel's launches on each rank in the C96
-    run's timed steps."""
+    run's timed steps, and each C96 rank's host peak in bytes."""
     import shutil
 
     t15 = time.perf_counter()
@@ -2490,8 +2513,309 @@ def run_split_ranks(card) -> dict:
     if not files:
         raise AssertionError("15.3: the cut yaml wrote no files to compare")
     log(f"[15] phase 15 took {time.perf_counter() - t15:.0f} s")
-    return {k: [r["launches"][k] for r in c96["ranks"]]
-            for k in ("K-T", "K-S", "K-F")}
+    return ({k: [r["launches"][k] for r in c96["ranks"]]
+             for k in ("K-T", "K-S", "K-F")},
+            [r["host_peak_bytes"] for r in c96["ranks"]])
+
+
+# ---------------------------------------------------------------------------
+# phase 16: each rank builds only its own block of the initial state
+# ---------------------------------------------------------------------------
+
+C384_YAML = "c384_multihost_emulator.yaml"
+# 16.1: ranks of the yaml's [6, 4, 4] mesh (hosts [6, 1, 1]) at n = 384,
+# each built alone: tile 0's south-west corner box, a west-edge box, an
+# interior box (its halo all other ranks' compute points) and tile 5's
+# north-east corner box
+LOCAL_RANKS = (0, 1, 5, 95)
+# 16.2: the yaml cut to nx_tile 96 at [6, 2, 2], 24 ranks each holding
+# 48 x 48 cells of one tile.  At nx_tile 192 (96 x 96 cells, the box of a
+# C384 [6, 4, 4] rank) the host holds the 24 ranks but the card does not:
+# they need more than its 79 GB (PERF.md section 6)
+C384_LOCAL = dict(mesh=dict(layout=[6, 2, 2], multihost=False,
+                            dcn_mesh_shape=[6, 1, 1]), minutes=5)
+LOCAL_N = 96
+# the processes phase 16 starts beside other phases; the script stops those
+# still running when it ends
+BACKGROUND = []
+
+
+def _log16(msg):
+    log(f"[16] {msg}")
+
+
+def local_build_main(out: str, which: str, device="cuda") -> None:
+    """`chip_smoke.py --local-build OUT WHICH`, one process of 16.1: rank
+    WHICH of c384_multihost_emulator.yaml's mesh builds its grid and its
+    initial state alone (float32 on `device`), or with WHICH `whole` the
+    whole cube is built as one process builds it.  Writes OUT/WHICH.json
+    (seconds, host peak, device bytes) and the float64 host arrays before
+    the cast: a rank's own (OUT/rank<r>.npz), or the whole cube's cut to
+    each of LOCAL_RANKS (OUT/cut<r>.npz)."""
+    import dataclasses
+
+    from pace_torch.driver import DriverConfig
+    from pace_torch.driver.performance import host_peak_bytes
+    from pace_torch.grid import eta
+    from pace_torch.grid.generation import (
+        _generate_metric_terms,
+        generate_grid_data,
+    )
+    from pace_torch.models.fv3.init.baroclinic import (
+        init_baroclinic_state_numpy,
+    )
+    from pace_torch.models.fv3.state import DycoreState
+    from pace_torch.parallel.partition import Partition
+    from pace_torch.utils.gridtools import GridSizing
+
+    config = DriverConfig.from_yaml(os.path.join(EXAMPLES, C384_YAML))
+    if config.initialization.type != "baroclinic":
+        raise AssertionError(f"{C384_YAML} starts from "
+                             f"{config.initialization.type}")
+    n, nz = config.nx_tile, config.nz
+    partition = Partition(config.mesh.layout, n,
+                          dcn_mesh_shape=config.mesh.dcn_mesh_shape)
+    part = None if which == "whole" else partition.part(int(which))
+    if device == "cuda":
+        torch.zeros(1, device=device)  # the CUDA context
+    # what the process holds before the build: on the card's host about
+    # 5 GB (PERF.md section 6), pages of the CUDA libraries that the
+    # host's processes share
+    base = host_rss_bytes()
+    t0 = time.perf_counter()
+    grid = generate_grid_data(n, nz, device=device, dtype=torch.float32,
+                              scatter=None if part is None else part.cut)
+    arrays = init_baroclinic_state_numpy(
+        _generate_metric_terms(n, 3), eta.set_hybrid_pressure_coefficients(
+            nz), GridSizing(n, nz), part=part)
+    state = DycoreState.from_numpy(arrays, device, torch.float32)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    report = dict(
+        which=which, seconds=seconds, host_peak_bytes=host_peak_bytes(),
+        host_base_bytes=base,
+        device_bytes=(torch.cuda.memory_allocated() if device == "cuda"
+                      else None),
+        state_bytes=sum(getattr(state, f.name).nbytes
+                        for f in dataclasses.fields(state)),
+        held=list(state.u.shape[:3]),
+        host_state_bytes=sum(a.nbytes for a in arrays.values()))
+    del grid, state
+    if part is None:
+        for rank in LOCAL_RANKS:
+            np.savez(os.path.join(out, f"cut{rank}.npz"),
+                     **{k: partition.scatter(v, rank)
+                        for k, v in arrays.items()})
+    else:
+        np.savez(os.path.join(out, f"rank{which}.npz"), **arrays)
+    with open(os.path.join(out, f"{which}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def host_rss_bytes() -> int:
+    """This process's resident host memory now (/proc/self/status)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+def start_local_builds(out: str) -> list:
+    """16.1's processes, all started together: the whole cube and each of
+    LOCAL_RANKS.  Returns (which, Popen) pairs."""
+    import shutil
+
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    procs = []
+    for which in ("whole",) + tuple(str(r) for r in LOCAL_RANKS):
+        logf = open(os.path.join(out, f"{which}.log"), "w")
+        procs.append((which, subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--local-build", out, which],
+            stdout=logf, stderr=subprocess.STDOUT, cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=REPO))))
+        BACKGROUND.append(procs[-1][1])
+        logf.close()
+    return procs
+
+
+def check_local_builds(out: str, procs: list, card: str) -> tuple:
+    """16.1: wait for the processes; every rank's float64 host arrays equal
+    the whole cube's cut to it, every leaf, NaN for NaN; the host memory
+    each rank's build adds (its peak over what the process held before,
+    the libraries' shared pages) below a fifth of what the whole cube's
+    adds.  Returns (the largest base, the largest rank addition), in
+    bytes."""
+    for which, proc in procs:
+        if proc.wait(timeout=600) != 0:
+            with open(os.path.join(out, f"{which}.log")) as f:
+                log(f.read()[-4000:])
+            raise AssertionError(f"16.1: the build of {which} failed "
+                                 f"({proc.returncode})")
+    reports = {}
+    for which, _ in procs:
+        with open(os.path.join(out, f"{which}.json")) as f:
+            reports[which] = json.load(f)
+    for r in reports.values():
+        r["added"] = r["host_peak_bytes"] - r["host_base_bytes"]
+    whole = reports.pop("whole")
+    _log16(f"16.1 {C384_YAML} at n=384, [6, 4, 4] (hosts [6, 1, 1]): the "
+           f"whole cube as one process builds it, grid and state float32 on "
+           f"the card: {whole['seconds']:.1f} s, host peak "
+           f"{whole['host_peak_bytes']} bytes ({whole['added']} over the "
+           f"{whole['host_base_bytes']} the process held before), device "
+           f"{whole['device_bytes']} bytes (state {whole['state_bytes']}; "
+           f"float64 host state {whole['host_state_bytes']}) on {card}")
+    for rank in LOCAL_RANKS:
+        r = reports[str(rank)]
+        with np.load(os.path.join(out, f"rank{rank}.npz")) as got, \
+                np.load(os.path.join(out, f"cut{rank}.npz")) as want:
+            if sorted(got.files) != sorted(want.files):
+                raise AssertionError(f"16.1 rank {rank}: fields "
+                                     f"{got.files} against {want.files}")
+            differ = [k for k in got.files if not np.array_equal(
+                got[k], want[k], equal_nan=True)]
+        share = r["added"] / whole["added"]
+        _log16(f"16.1 rank {rank} built alone, block {r['held']}: "
+               f"{r['seconds']:.1f} s, host peak {r['host_peak_bytes']} "
+               f"bytes ({r['added']} over the {r['host_base_bytes']} held "
+               f"before: {share:.3f} of the whole cube's), device "
+               f"{r['device_bytes']} bytes (state {r['state_bytes']}; "
+               f"float64 host state {r['host_state_bytes']}); "
+               + ("every float64 leaf identical to the whole cube's cut "
+                  "(required)" if not differ else f"{differ} differ"))
+        if differ:
+            raise AssertionError(f"16.1 rank {rank}: {differ} differ from "
+                                 "the whole cube's cut")
+        if not share < 0.2:
+            raise AssertionError(f"16.1 rank {rank}: the host memory its "
+                                 f"build adds, {r['added']}, is not below a "
+                                 "fifth of the whole cube's "
+                                 f"{whole['added']}")
+    return (max(r["host_base_bytes"] for r in reports.values()),
+            max(r["added"] for r in reports.values()))
+
+
+def local_yaml_copy(n, work, mesh=None) -> str:
+    """16.2's cut yaml at nx_tile `n` in `work`: its ranks, or with `mesh`
+    another mesh section (one rank: {"layout": [1, 1, 1]})."""
+    return yaml_copy(C384_YAML, work, **dict(
+        C384_LOCAL, nx_tile=n, mesh=mesh or C384_LOCAL["mesh"]))
+
+
+def start_one_rank_run(n, out) -> tuple:
+    """16.2's one-rank run of the cut yaml, in its own process (it runs
+    beside 16.1's builds).  Returns (config path, Popen)."""
+    path = local_yaml_copy(n, os.path.join(out, f"c{n}_one"),
+                           dict(layout=[1, 1, 1]))
+    logf = open(os.path.join(out, f"c{n}_one.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pace_torch.driver.run", path,
+         "--log-level", "WARNING"], cwd=os.path.dirname(path),
+        stdout=logf, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    BACKGROUND.append(proc)
+    logf.close()
+    return path, proc
+
+
+def wait_one_rank_run(n, out, path, proc) -> None:
+    if proc.wait(timeout=600) != 0:
+        with open(os.path.join(out, f"c{n}_one.log")) as f:
+            log(f.read()[-4000:])
+        raise AssertionError(f"16.2: the one-rank run at nx_tile {n} "
+                             f"failed ({proc.returncode})")
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("/proc/meminfo has no MemAvailable")
+
+
+LOCAL_OUT = os.path.join(REPO, "build", "phase16")
+
+
+def start_local_init() -> dict:
+    """Phase 16's processes that need neither the card's attention nor
+    the host's memory for long: 16.1's builds and the one-rank run of
+    16.2's cut yaml at nx_tile LOCAL_N. `main` starts them before
+    phase 11 (a single process that waits on its launches), so that they
+    run beside phases 11 to 13."""
+    procs = start_local_builds(LOCAL_OUT)
+    return dict(t0=time.perf_counter(), procs=procs,
+                one=start_one_rank_run(LOCAL_N, LOCAL_OUT))
+
+
+def run_local_init(card, started: dict, split_peaks=None) -> None:
+    """Phase 16: 16.1, the builds of LOCAL_RANKS and of the whole cube
+    (`started`), against each other; then 16.2, the cut yaml's 24 ranks
+    through torchrun against the one-rank run.  `split_peaks`, the host
+    peaks of phase 15.2's ranks where phase 15 ran, bound what a rank of
+    16.2 adds to the host."""
+    t16 = time.perf_counter()
+    out, n, one = LOCAL_OUT, LOCAL_N, started["one"]
+    base, added = check_local_builds(out, started["procs"], card)
+    for name in os.listdir(out):
+        if name.endswith(".npz"):
+            os.remove(os.path.join(out, name))
+    log(f"[16] 16.1's processes started {t16 - started['t0']:.0f} s before "
+        f"phase 16; their checks took {time.perf_counter() - t16:.0f} s")
+    wait_one_rank_run(n, out, *one)
+
+    layout = C384_LOCAL["mesh"]["layout"]
+    ranks = int(np.prod(layout))
+    # what a rank of 16.2 adds to the host over the pages every torch
+    # process shares: 15.2's ranks hold the same C96 cube's metric terms
+    # and blocks of the same size, step the same emulator and gather the
+    # state besides; without phase 15, 16.1's C384 ranks, whose whole-cube
+    # metric terms are 16 times a C96 rank's
+    if split_peaks:
+        per_rank, source = max(split_peaks) - base, "15.2's C96 ranks"
+    else:
+        per_rank, source = added, "16.1's C384 ranks"
+    available = host_available_bytes()
+    need = base + ranks * per_rank
+    summary = (f"{available} bytes available; {ranks} ranks at "
+               f"{per_rank} each ({source}) over a shared {base} need at "
+               f"most {need}")
+    _log16(f"16.2 the host has {summary}")
+    if need > 0.9 * available:
+        raise AssertionError(f"16.2: the host cannot hold {ranks} ranks: "
+                             f"{summary}")
+    work = os.path.join(out, f"c{n}_split")
+    path = local_yaml_copy(n, work)
+    torch.cuda.empty_cache()  # the card's memory is the 24 ranks'
+    free, total = torch.cuda.mem_get_info()
+    _log16(f"16.2 the card has {free} of {total} bytes free; this process "
+           f"holds {torch.cuda.memory_reserved()}")
+    t0 = time.perf_counter()
+    torchrun(["-m", "pace_torch.driver.run", path, "--log-level",
+              "WARNING"], work, timeout=600, ranks=ranks, tag="[16]")
+    t_split = time.perf_counter() - t0
+    files = compare_files(os.path.dirname(one[0]), work, split=True,
+                          zarr=True)
+    with open(os.path.join(work, "c384_emulator_perf.json")) as f:
+        report = json.load(f)
+    if not files:
+        raise AssertionError("16.2: the cut yaml wrote no files to compare")
+    peaks = [r["host_peak_bytes"] for r in report["ranks"]]
+    cards = [r["device_peak_bytes"] for r in report["ranks"]]
+    starts = [r["initialization"] for r in report["ranks"]]
+    _log16(f"16.2 {C384_YAML} cut to nx_tile {n}, layout {layout} "
+           f"({ranks} ranks of {n // 2} x {n // 2} cells), 2 steps through "
+           f"torchrun -m pace_torch.driver.run: {len(files)} files equal "
+           f"to the one-rank run's; host available before "
+           f"{available} bytes; each rank's host peak {peaks} bytes (sum "
+           f"{sum(peaks)}), card peak {min(cards)}-{max(cards)} bytes (sum "
+           f"{sum(cards)}), initialization {min(starts):.1f}-"
+           f"{max(starts):.1f} s; {ranks} ranks {t_split:.1f} s on {card}")
+    log(f"[16] phase 16 took {time.perf_counter() - t16:.0f} s")
 
 
 def main(phases=None) -> None:
@@ -2573,6 +2897,10 @@ def main(phases=None) -> None:
         subcycle = run_branches(card)
         log(f"[10] phase 10 took {time.perf_counter() - t10:.0f} s")
 
+    # ---- phase 16's builds start here and run beside phases 11 to 13
+    if run(16):
+        local_init = start_local_init()
+
     # ---- phase 11: the JW day-1 anchor
     if run(11):
         check_jw_day1()
@@ -2602,9 +2930,14 @@ def main(phases=None) -> None:
         launches_ranks = run_ranks(card, PHASE9_C48)
 
     # ---- phase 15: ranks that split tiles along x and y through torchrun
+    split_peaks = None
     if run(15):
-        launches_split = run_split_ranks(card)
-    log(f"[15] all phases took {time.perf_counter() - started:.0f} s")
+        launches_split, split_peaks = run_split_ranks(card)
+
+    # ---- phase 16: each rank builds only its own part of the initial state
+    if run(16):
+        run_local_init(card, local_init, split_peaks)
+    log(f"[16] all phases took {time.perf_counter() - started:.0f} s")
     if phases is not None:
         log(f"phases {sorted(phases)} only: no result lines")
         return
@@ -2627,12 +2960,23 @@ def main(phases=None) -> None:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
+def stop_background() -> None:
+    for proc in BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ranks"]:
         rank_main(sys.argv[2])
     elif sys.argv[1:2] == ["--split-ranks"]:
         split_rank_main(sys.argv[2])
-    elif sys.argv[1:2] == ["--phases"]:
-        main({int(p) for p in sys.argv[2].split(",")})
+    elif sys.argv[1:2] == ["--local-build"]:
+        local_build_main(*sys.argv[2:4])
     else:
-        main()
+        try:
+            main({int(p) for p in sys.argv[2].split(",")}
+                 if sys.argv[1:2] == ["--phases"] else None)
+        finally:
+            stop_background()

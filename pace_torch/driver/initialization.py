@@ -31,9 +31,10 @@ class Initializer(abc.ABC):
         ...
 
     @abc.abstractmethod
-    def get_dycore_state(self, sizing, device, dtype, scatter=None):
+    def get_dycore_state(self, sizing, device, dtype, part=None):
         """The initial DycoreState on `device` with `dtype`: the whole cube,
-        or one rank's part (`scatter`, `Partition.scatterer(rank)`)."""
+        or the block one rank holds (`part`, `Partition.part(rank)`),
+        which is all a rank builds or reads."""
 
 
 @dataclasses.dataclass
@@ -46,13 +47,13 @@ class BaroclinicInit(Initializer):
     def start_time(self) -> datetime:
         return datetime.fromisoformat(self.start_time_str)
 
-    def get_dycore_state(self, sizing, device, dtype, scatter=None):
+    def get_dycore_state(self, sizing, device, dtype, part=None):
         from pace_torch.models.fv3.init.baroclinic import (
             init_baroclinic_state,
         )
 
         return init_baroclinic_state(sizing, device=device, dtype=dtype,
-                                     scatter=scatter)
+                                     part=part)
 
 
 @dataclasses.dataclass
@@ -65,11 +66,10 @@ class TropicalCycloneConfig(Initializer):
     def start_time(self) -> datetime:
         return datetime.fromisoformat(self.start_time_str)
 
-    def get_dycore_state(self, sizing, device, dtype, scatter=None):
+    def get_dycore_state(self, sizing, device, dtype, part=None):
         from pace_torch.models.fv3.init.tropical_cyclone import init_tc_state
 
-        return init_tc_state(sizing, device=device, dtype=dtype,
-                             scatter=scatter)
+        return init_tc_state(sizing, device=device, dtype=dtype, part=part)
 
 
 @dataclasses.dataclass
@@ -83,11 +83,11 @@ class RestartInit(Initializer):
     def start_time(self) -> datetime:
         return datetime.fromisoformat(self.start_time_str)
 
-    def get_dycore_state(self, sizing, device, dtype, scatter=None):
+    def get_dycore_state(self, sizing, device, dtype, part=None):
         from pace_torch.driver.restart import load_restart_arrays
 
-        return DycoreState.from_numpy(load_restart_arrays(self.path),
-                                      device, dtype, scatter)
+        return DycoreState.from_numpy(load_restart_arrays(self.path, part),
+                                      device, dtype)
 
 
 @dataclasses.dataclass
@@ -116,17 +116,17 @@ class FortranRestartInit(Initializer):
             return get_current_date_from_coupler_res(coupler)
         return datetime(2000, 1, 1)
 
-    def get_dycore_state(self, sizing, device, dtype, scatter=None):
+    def get_dycore_state(self, sizing, device, dtype, part=None):
         from pace_torch.utils.legacy_restart import open_restart
 
         arrays = open_restart(self.path, sizing, label=self.label,
-                              dtype=None)
+                              dtype=None, part=part)
         arrays.pop("time", None)
         # surface-wind diagnostics are not DycoreState fields
         arrays.pop("u_srf", None)
         arrays.pop("v_srf", None)
-        return DycoreState.from_numpy({**zeros_numpy(sizing), **arrays},
-                                      device, dtype, scatter)
+        return DycoreState.from_numpy(
+            {**zeros_numpy(sizing, part), **arrays}, device, dtype)
 
 
 @dataclasses.dataclass
@@ -143,12 +143,13 @@ class PredefinedStateInit(Initializer):
     def start_time(self) -> datetime:
         return datetime.fromisoformat(self.start_time_str)
 
-    def get_dycore_state(self, sizing, device, dtype, scatter=None):
+    def get_dycore_state(self, sizing, device, dtype, part=None):
         if self.dycore_state is None:
             raise ValueError(
                 "predefined initializer requires a dycore_state object"
             )
-        cut = scatter or (lambda a: a)
+        # the state given is the whole cube: a rank cuts it
+        cut = part.cut if part is not None else (lambda a: a)
         return DycoreState(**{
             f.name: cut(getattr(self.dycore_state, f.name)).to(
                 device=device, dtype=dtype)
@@ -176,9 +177,8 @@ class InitializerSelector(Initializer):
     def start_time(self) -> datetime:
         return self.config.start_time
 
-    def get_dycore_state(self, sizing, device, dtype, scatter=None):
-        return self.config.get_dycore_state(sizing, device, dtype,
-                                            scatter)
+    def get_dycore_state(self, sizing, device, dtype, part=None):
+        return self.config.get_dycore_state(sizing, device, dtype, part)
 
     @classmethod
     def from_dict(cls, config: dict):

@@ -4,7 +4,8 @@ Port of `pace_tpu.driver.performance` (reference ai2cm/pace
 driver/pace/driver/performance/{config,collector,report}.py): a
 PerformanceConfig builds a collector that times each step and writes a JSON
 report with simulated-years-per-day (SYPD), and optionally a profiler that
-writes a Chrome trace of the time loop.
+writes a Chrome trace of the time loop.  A report of several ranks also
+lists each rank's initialization seconds and host and card memory peaks.
 """
 
 from __future__ import annotations
@@ -12,12 +13,19 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import resource
 import time
 from typing import List, Optional
 
 import torch
 
 from pace_torch.utils.timing import NullTimer, Timer
+
+
+def host_peak_bytes() -> int:
+    """This process's peak resident host memory in bytes (Linux reports
+    it in KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
 
 
 @dataclasses.dataclass
@@ -91,8 +99,10 @@ class PerformanceCollector:
         self.timestep_timer = Timer(device=device)
         self.times_per_step: List[dict] = []
         self._t0: Optional[float] = None
-        # the totals' maximum over ranks, once take_max has run
+        # the totals' maximum over ranks, and each rank's initialization
+        # seconds and host peak, once take_max has run
         self._max_totals: Optional[dict] = None
+        self._ranks: Optional[List[dict]] = None
 
     def start_step(self):
         self._t0 = time.perf_counter()
@@ -105,9 +115,15 @@ class PerformanceCollector:
         self.timestep_timer.reset()
 
     def times(self) -> dict:
-        """This rank's timers: per step and totals."""
+        """This rank's timers, per step and totals, and its host peak and
+        card peak (None off the card)."""
+        device = self.total_timer.device
         return dict(times_per_step=self.times_per_step,
-                    total_times=self.total_timer.times)
+                    total_times=self.total_timer.times,
+                    host_peak_bytes=host_peak_bytes(),
+                    device_peak_bytes=(
+                        torch.cuda.max_memory_allocated(device)
+                        if device.type == "cuda" else None))
 
     def take_max(self, every_rank: list):
         """Replace the timers by their maximum over ranks (`times()` of
@@ -119,6 +135,12 @@ class PerformanceCollector:
         totals = [r["total_times"] for r in every_rank]
         self._max_totals = {k: max(t[k] for t in totals)
                             for k in totals[0]}
+        self._ranks = [dict(rank=rank,
+                            initialization=r["total_times"].get(
+                                "initialization"),
+                            host_peak_bytes=r["host_peak_bytes"],
+                            device_peak_bytes=r["device_peak_bytes"])
+                       for rank, r in enumerate(every_rank)]
 
     def sypd(self, dt_atmos: float) -> float:
         """Simulated years per wall-clock day, excluding the first step."""
@@ -139,6 +161,8 @@ class PerformanceCollector:
             times_per_step=self.times_per_step,
             total_times=self._max_totals or self.total_timer.times,
         )
+        if self._ranks is not None:
+            report["ranks"] = self._ranks
         fname = f"{path}/{self.experiment_name}_perf.json"
         with open(fname, "w") as f:
             json.dump(report, f, indent=2)

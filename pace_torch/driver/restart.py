@@ -8,8 +8,8 @@ use; where it cannot be built the write raises), the layout the reference
 package's writer produces; `format: netcdf` writes `dycore_state.nc`.
 `load_restart_arrays` reads either, and the single `dycore_state.npz` the
 reference package falls back to.  In a multi-rank run rank 0 writes the
-whole cube's restart from every rank's tiles; each rank reads its own
-tiles back (`RestartInit`).
+whole cube's restart from every rank's blocks; each rank reads its own
+block back (`RestartInit`).
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import struct
+import zipfile
 from typing import Optional
 
 import numpy as np
@@ -84,20 +86,52 @@ def write_restart(dycore_state, time, path: str, format: str = "npz",
         json.dump({"time": str(time) if time else None}, f)
 
 
-def load_restart_arrays(path: str) -> dict:
+def load_restart_arrays(path: str, part=None) -> dict:
+    """The restart's fields, whole or the block `part`
+    (`Partition.part(rank)`) holds: a rank reads one field at a time and
+    keeps only its block of it (the .npy files and the NetCDF file through
+    memory maps)."""
     nc_path = os.path.join(path, "dycore_state.nc")
     if os.path.exists(nc_path):
         from pace_torch.utils.netcdf import read_dataset
 
-        return read_dataset(nc_path)
+        return read_dataset(nc_path, None if part is None else part.cut)
     npy_dir = os.path.join(path, "dycore_state")
     if os.path.isdir(npy_dir):
         from pace_torch._native.fastpack import read_npy
 
-        return {
-            fname[:-4]: read_npy(os.path.join(npy_dir, fname))
-            for fname in sorted(os.listdir(npy_dir))
-            if fname.endswith(".npy")
-        }
-    data = np.load(os.path.join(path, "dycore_state.npz"))
-    return {k: data[k] for k in data.files}
+        names = sorted(f for f in os.listdir(npy_dir) if f.endswith(".npy"))
+        if part is None:
+            return {f[:-4]: read_npy(os.path.join(npy_dir, f))
+                    for f in names}
+        return {f[:-4]: np.array(part.cut(np.load(
+            os.path.join(npy_dir, f), mmap_mode="r"))) for f in names}
+    return dict(_npz_blocks(os.path.join(path, "dycore_state.npz"),
+                            (lambda a: a) if part is None else part.cut))
+
+
+def _npz_blocks(path: str, cut):
+    """(name, cut of the field) for each array of an .npz, one at a time:
+    a member stored uncompressed (`numpy.savez`) read through a memory map
+    of its bytes, a compressed one read whole."""
+    with zipfile.ZipFile(path) as archive, open(path, "rb") as f:
+        for info in archive.infolist():
+            name = info.filename[:-len(".npy")]
+            if info.compress_type != zipfile.ZIP_STORED:
+                with archive.open(info) as member:
+                    yield name, np.array(cut(np.lib.format.read_array(
+                        member)))
+                continue
+            # the member's local header: its name and extra field lengths
+            # at bytes 26-29, then the .npy file itself
+            f.seek(info.header_offset)
+            name_len, extra_len = struct.unpack("<HH", f.read(30)[26:30])
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            shape, fortran, dtype = (
+                np.lib.format.read_array_header_1_0(f) if version == (1, 0)
+                else np.lib.format.read_array_header_2_0(f))
+            data = np.memmap(path, dtype=dtype, mode="r", offset=f.tell(),
+                             shape=shape, order="F" if fortran else "C")
+            yield name, np.array(cut(data))
+            del data

@@ -226,7 +226,7 @@ class GridData:
         """Build from nested numpy leaves {bundle: {field: array or
         scalar}} -- the layout of `pace_tpu`'s GridData, so both packages
         can be fed identical metrics.  With `scatter`
-        (`Partition.scatterer(rank)`) the horizontal bundles hold one rank's
+        (`Partition.part(rank).cut`) the horizontal bundles hold one rank's
         part; the scalars (da_min, ...) stay those of the whole cube."""
         kw = {
             name: _tensor_bundle(bcls, arrays[name], device, dtype,
@@ -238,7 +238,7 @@ class GridData:
 
     def scattered(self, scatter) -> "GridData":
         """This (whole cube's) grid cut by `scatter`
-        (`Partition.scatterer(rank)`), as `from_numpy` cuts it: contiguous
+        (`Partition.part(rank).cut`), as `from_numpy` cuts it: contiguous
         copies, as the kernels take them."""
         def cut(bundle):
             kw = {}
@@ -325,6 +325,12 @@ def _generate_metric_terms(
         stretch_factor, lon_target, lat_target = None, 350.0, -90.0
     return _metric_terms(n, halo, stretch_factor, float(lon_target),
                          float(lat_target))
+
+
+def clear_metric_terms() -> None:
+    """Drop the whole-cube metric terms cached for the grids built so far
+    (a rank process keeps only its block of them)."""
+    _metric_terms.cache_clear()
 
 
 @functools.lru_cache(maxsize=4)

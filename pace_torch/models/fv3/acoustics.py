@@ -204,9 +204,10 @@ def acoustic_dynamics(
         )
 
         if config.rf_fast:
+            # nonhydrostatic: DynamicalCore refuses hydrostatic configs
             s["u"], s["v"], s["w"] = nhpg.ray_fast(
                 s["u"], s["v"], s["w"], dp_ref_col, pfull_col, dt_acoustic,
-                ptop, config.rf_cutoff, config.tau,
+                ptop, config.rf_cutoff, config.tau, False,
             )
 
         if it != n_split - 1:

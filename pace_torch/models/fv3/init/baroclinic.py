@@ -5,10 +5,14 @@ ai2cm/pace fv3core/pace/fv3core/initialization/baroclinic.py:436): the
 Jablonowski & Williamson analytic state is evaluated on all six tiles at
 once, winds are projected onto the local grid directions with the ee/es/ew
 unit vectors and Simpson-averaged along the staggered edges, scalars are
-9-point cell averages, and halos are filled with the topology gather maps.
+9-point cell averages, and the halos of u, v and phis hold what the
+topology's gather maps read.  A rank evaluates the same formulas on its
+own block only (`RankPart`), its halo points at their gather sources.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -16,7 +20,7 @@ import torch
 from pace_torch.grid import geometry
 from pace_torch.models.fv3 import state as state_mod
 from pace_torch.models.fv3.init import jablonowski_williamson as jw
-from pace_torch.parallel.topology import get_topology
+from pace_torch.parallel.partition import RankPart, is_compute
 from pace_torch.utils import constants
 from pace_torch.utils.gridtools import GridSizing
 
@@ -62,34 +66,68 @@ def _projected_wind(eta_v, lon_pt, lat_pt, vec):
     return wind * proj[..., None]
 
 
-def _cell_average_nine(fn, args, lon, lat, lat_agrid):
-    """9-point (Simpson) cell average of a latitude-dependent field; lon/lat
-    are corners over (n+1, n+1) bracketing the (n, n) cells."""
-    _, lat2 = geometry.lon_lat_midpoint(
-        lon[:, :-1, :], lon[:, 1:, :], lat[:, :-1, :], lat[:, 1:, :]
-    )  # x-direction edge midpoints (south rows), (n, n+1)
-    _, lat3 = geometry.lon_lat_midpoint(
-        lon[:, 1:, :-1], lon[:, 1:, 1:], lat[:, 1:, :-1], lat[:, 1:, 1:]
-    )  # east edges, (n, n)
-    _, lat4 = geometry.lon_lat_midpoint(
-        lon[:, :-1, 1:], lon[:, 1:, 1:], lat[:, :-1, 1:], lat[:, 1:, 1:]
-    )  # north rows, (n, n)
-    _, lat5 = geometry.lon_lat_midpoint(
-        lon[:, :, :-1], lon[:, :, 1:], lat[:, :, :-1], lat[:, :, 1:]
-    )  # west edges, (n+1, n)
+def _cell_average_nine(fn, args, corners, lat_agrid):
+    """9-point (Simpson) cell average of a latitude-dependent field at
+    cells given by their corners' (lon, lat): those at (i, j), (i+1, j),
+    (i, j+1) and (i+1, j+1)."""
+    (lon00, lat00), (lon10, lat10), (lon01, lat01), (lon11, lat11) = corners
+    _, lat2 = geometry.lon_lat_midpoint(lon00, lon10, lat00, lat10)  # south
+    _, lat3 = geometry.lon_lat_midpoint(lon10, lon11, lat10, lat11)  # east
+    _, lat4 = geometry.lon_lat_midpoint(lon01, lon11, lat01, lat11)  # north
+    _, lat5 = geometry.lon_lat_midpoint(lon00, lon01, lat00, lat01)  # west
     pt1 = fn(*args, lat=lat_agrid)
-    pt2 = fn(*args, lat=lat2[:, :, :-1])
+    pt2 = fn(*args, lat=lat2)
     pt3 = fn(*args, lat=lat3)
     pt4 = fn(*args, lat=lat4)
-    pt5 = fn(*args, lat=lat5[:, :-1, :])
-    pt6 = fn(*args, lat=lat[:, :-1, :-1])
-    pt7 = fn(*args, lat=lat[:, 1:, :-1])
-    pt8 = fn(*args, lat=lat[:, 1:, 1:])
-    pt9 = fn(*args, lat=lat[:, :-1, 1:])
+    pt5 = fn(*args, lat=lat5)
+    pt6 = fn(*args, lat=lat00)
+    pt7 = fn(*args, lat=lat10)
+    pt8 = fn(*args, lat=lat11)
+    pt9 = fn(*args, lat=lat01)
     return (
         0.25 * pt1 + 0.125 * (pt2 + pt3 + pt4 + pt5)
         + 0.0625 * (pt6 + pt7 + pt8 + pt9)
     )
+
+
+class _Points:
+    """The analytic fields at lists of storage points (t, i, j) of the
+    whole cube's metric terms `hz`: u on y-interfaces, v on x-interfaces
+    (Simpson averages along the edge from the point to its i + 1 or j + 1
+    neighbour) and 9-point cell averages.  Each takes its inputs gathered
+    into contiguous arrays, so a point's value does not depend on which
+    other points are evaluated with it."""
+
+    def __init__(self, hz, eta_v):
+        self.hz, self.eta_v = hz, eta_v
+
+    def _wind(self, t, i, j, di, dj, vec, mid_vec):
+        lon, lat = self.hz["lon"], self.hz["lat"]
+        lon0, lat0 = lon[t, i, j], lat[t, i, j]
+        lon1, lat1 = lon[t, i + di, j + dj], lat[t, i + di, j + dj]
+        uu0 = _projected_wind(self.eta_v, lon0, lat0, vec[t, i, j])
+        uu1 = _projected_wind(self.eta_v, lon1, lat1,
+                              vec[t, i + di, j + dj])
+        mlon, mlat = geometry.lon_lat_midpoint(lon0, lon1, lat0, lat1)
+        uu2 = _projected_wind(self.eta_v, mlon, mlat, mid_vec[t, i, j])
+        return uu0, uu1, uu2
+
+    def u(self, t, i, j):
+        uu1, uu3, uu2 = self._wind(t, i, j, 1, 0, self.hz["ee1"],
+                                   self.hz["es1"])
+        return 0.25 * (uu1 + 2.0 * uu2 + uu3)
+
+    def v(self, t, i, j):
+        uu3, uu1, uu2 = self._wind(t, i, j, 0, 1, self.hz["ee2"],
+                                   self.hz["ew2"])
+        return 0.25 * (uu1 + 2.0 * uu2 + uu3)
+
+    def cell_average(self, fn, args, t, i, j):
+        lon, lat = self.hz["lon"], self.hz["lat"]
+        corners = [(lon[t, i + di, j + dj], lat[t, i + di, j + dj])
+                   for di, dj in ((0, 0), (1, 0), (0, 1), (1, 1))]
+        return _cell_average_nine(fn, args, corners,
+                                  self.hz["lat_agrid"][t, i, j])
 
 
 def init_baroclinic_state_numpy(
@@ -99,22 +137,23 @@ def init_baroclinic_state_numpy(
     adiabatic: bool = False,
     hydrostatic: bool = False,
     moist_phys: bool = True,
+    part: Optional[RankPart] = None,
 ):
-    """Returns a dict of float64 numpy arrays for every DycoreState field."""
-    hz = raw_metrics["horizontal"]
+    """Returns a dict of float64 numpy arrays for every DycoreState field:
+    of the whole cube, or of the block `part` (`Partition.part(rank)`)
+    holds, equal to the whole cube's cut to it.  The block's halo points
+    of u, v and phis take the value the whole cube's halo gather gives
+    them: the fields evaluated at the gather's source points."""
     n, h = sizing.n, sizing.halo
-    topo = get_topology(n, h)
+    part = part if part is not None else RankPart.whole(n, h)
     ak = np.asarray(vertical.ak)
     bk = np.asarray(vertical.bk)
     ptop = vertical.ptop
 
-    arrays = state_mod.zeros_numpy(sizing)
+    arrays = state_mod.zeros_numpy(sizing, part)
 
-    ci = slice(h, h + n)       # compute cells
-    cie = slice(h, h + n + 1)  # compute interfaces
-    c3 = (slice(None), ci, ci)
-
-    # pressure setup over the whole storage (cheap; halos then exact)
+    # pressure setup over the held storage (horizontally uniform; halos
+    # then exact)
     arrays["ps"][:] = jw.SURFACE_PRESSURE
     arrays["delp"][:] = initialize_delp(arrays["ps"], ak, bk)
     arrays["pe"][:] = initialize_edge_pressure(arrays["delp"], ptop)
@@ -123,73 +162,44 @@ def init_baroclinic_state_numpy(
         arrays["pe"], arrays["peln"], ptop
     )
     eta, eta_v = jw.compute_eta(ak, bk)
+    at = _Points(raw_metrics["horizontal"], eta_v)
 
-    lon = hz["lon"]
-    lat = hz["lat"]
-    lon_a = hz["lon_agrid"]
-    lat_a = hz["lat_agrid"]
-    ee1, ee2 = hz["ee1"], hz["ee2"]
-    es1, ew2 = hz["es1"], hz["ew2"]
-
-    # --- v wind: x-interfaces (i in [h, h+n]), y cells (j in [h, h+n)) ----
-    uu1 = _projected_wind(
-        eta_v, lon[:, cie, h + 1:h + n + 1], lat[:, cie, h + 1:h + n + 1],
-        ee2[:, cie, h + 1:h + n + 1],
-    )
-    uu3 = _projected_wind(
-        eta_v, lon[:, cie, ci], lat[:, cie, ci], ee2[:, cie, ci]
-    )
-    mlon, mlat = geometry.lon_lat_midpoint(
-        lon[:, cie, ci], lon[:, cie, h + 1:h + n + 1],
-        lat[:, cie, ci], lat[:, cie, h + 1:h + n + 1],
-    )
-    uu2 = _projected_wind(eta_v, mlon, mlat, ew2[:, cie, ci])
-    arrays["v"][:, cie, ci] = 0.25 * (uu1 + 2.0 * uu2 + uu3)
-
-    # --- u wind: x cells, y-interfaces ------------------------------------
-    uu1 = _projected_wind(
-        eta_v, lon[:, ci, cie], lat[:, ci, cie], ee1[:, ci, cie]
-    )
-    uu3 = _projected_wind(
-        eta_v, lon[:, h + 1:h + n + 1, cie], lat[:, h + 1:h + n + 1, cie],
-        ee1[:, h + 1:h + n + 1, cie],
-    )
-    mlon, mlat = geometry.lon_lat_midpoint(
-        lon[:, ci, cie], lon[:, h + 1:h + n + 1, cie],
-        lat[:, ci, cie], lat[:, h + 1:h + n + 1, cie],
-    )
-    uu2 = _projected_wind(eta_v, mlon, mlat, es1[:, ci, cie])
-    arrays["u"][:, ci, cie] = 0.25 * (uu1 + 2.0 * uu2 + uu3)
+    # --- u and v on their compute points and at their halo sources ---------
+    # a halo point takes the source's value of the source component times
+    # the sign; a source outside that component's compute points holds 0
+    for name, (st, si, sj, sc, sg) in zip(
+            ("u", "v"), part.vector_sources("y_iface", "x_iface")):
+        out = arrays[name]
+        for comp, stagger, fn in ((0, "y_iface", at.u), (1, "x_iface", at.v)):
+            pts = (sc == comp) & is_compute(stagger, n, h, si, sj)
+            out[pts] = fn(st[pts], si[pts], sj[pts])
+        arrays[name] = out * sg[..., None]
 
     # --- temperature and surface geopotential ------------------------------
+    c = part.compute("center")
+    ct, ci, cj = (a[c] for a in part.indices())
+    lat_a = raw_metrics["horizontal"]["lat_agrid"][ct, ci, cj]
     t_mean = jw.horizontally_averaged_temperature(eta)
-    lon_b = lon[:, h:h + n + 1, h:h + n + 1]
-    lat_b = lat[:, h:h + n + 1, h:h + n + 1]
-    arrays["pt"][c3] = _cell_average_nine(
-        jw.temperature, [eta, eta_v, t_mean], lon_b, lat_b, lat_a[:, ci, ci]
-    )
+    pt = at.cell_average(jw.temperature, [eta, eta_v, t_mean], ct, ci, cj)
+    st, si, sj = part.scalar_sources("center")
+    pts = is_compute("center", n, h, si, sj)
     arrays["phis"][:] = 1.0e25
-    arrays["phis"][:, ci, ci] = _cell_average_nine(
-        jw.surface_geopotential_perturbation, [], lon_b, lat_b,
-        lat_a[:, ci, ci],
-    )
+    arrays["phis"][pts] = at.cell_average(
+        jw.surface_geopotential_perturbation, [], st[pts], si[pts], sj[pts])
 
+    delp, peln = arrays["delp"][c], arrays["peln"][c]
     if not hydrostatic:
-        arrays["w"][c3] = 0.0
-        arrays["delz"][c3] = constants.RDG * arrays["pt"][c3] * (
-            arrays["peln"][c3 + (slice(1, None),)]
-            - arrays["peln"][c3 + (slice(None, -1),)]
+        arrays["w"][c] = 0.0
+        arrays["delz"][c] = constants.RDG * pt * (
+            peln[..., 1:] - peln[..., :-1]
         )
 
+    qvapor = arrays["qvapor"][c]
     if not adiabatic:
-        arrays["qvapor"][c3] = jw.specific_humidity(
-            arrays["delp"][c3],
-            arrays["peln"][c3],
-            lat_a[:, ci, ci],
-        )
-        arrays["pt"][c3] = arrays["pt"][c3] / (
-            1.0 + constants.ZVIR * arrays["qvapor"][c3]
-        )
+        qvapor = jw.specific_humidity(delp, peln, lat_a)
+        arrays["qvapor"][c] = qvapor
+        pt = pt / (1.0 + constants.ZVIR * qvapor)
+    arrays["pt"][c] = pt
 
     # --- p_var: auxiliary hydrostatic pressure fields -----------------------
     arrays["ps"][:] = arrays["pe"][..., -1]
@@ -198,32 +208,23 @@ def init_baroclinic_state_numpy(
         arrays["peln"][..., 0] = arrays["peln"][..., 1] - ak1
     else:
         arrays["peln"][..., 0] = np.log(ptop)
+    peln = arrays["peln"][c]
     if not hydrostatic:
-        arrays["delz"][c3] = constants.RDG * arrays["pt"][c3] * (
-            arrays["peln"][c3 + (slice(1, None),)]
-            - arrays["peln"][c3 + (slice(None, -1),)]
+        arrays["delz"][c] = constants.RDG * pt * (
+            peln[..., 1:] - peln[..., :-1]
         )
+    delz = arrays["delz"][c]
     with np.errstate(divide="ignore", invalid="ignore"):
         if moist_phys:
             pkz = np.exp(constants.KAPPA * np.log(
-                constants.RDG * arrays["delp"][c3] * arrays["pt"][c3]
-                * (1.0 + constants.ZVIR * arrays["qvapor"][c3])
-                / arrays["delz"][c3]
+                constants.RDG * delp * pt
+                * (1.0 + constants.ZVIR * qvapor) / delz
             ))
         else:
             pkz = np.exp(constants.KAPPA * np.log(
-                constants.RDG * arrays["delp"][c3] * arrays["pt"][c3]
-                / arrays["delz"][c3]
+                constants.RDG * delp * pt / delz
             ))
-    arrays["pkz"][c3] = pkz
-
-    # --- halo updates --------------------------------------------------------
-    from pace_torch.grid.generation import _halo_pair_np, _halo_scalar_np
-
-    arrays["phis"] = _halo_scalar_np(topo, arrays["phis"], "center")
-    arrays["u"], arrays["v"] = _halo_pair_np(
-        topo, arrays["u"], arrays["v"], "y_iface", "x_iface", signed=True
-    )
+    arrays["pkz"][c] = pkz
     return arrays
 
 
@@ -235,17 +236,17 @@ def init_baroclinic_state(
     *,
     device="cuda",
     dtype=torch.float32,
-    scatter=None,
+    part: Optional[RankPart] = None,
 ):
-    """Build a DycoreState with the J&W baroclinic wave (one rank's part
-    where `scatter` is given: the whole cube is built on the host and
-    cut)."""
+    """Build a DycoreState with the J&W baroclinic wave: of the whole cube,
+    or of one rank's block (`part`, `Partition.part(rank)`), which is all
+    that is built."""
     from pace_torch.grid import eta as eta_mod
     from pace_torch.grid.generation import _generate_metric_terms
 
     raw = _generate_metric_terms(sizing.n, sizing.halo)
     vertical = eta_mod.set_hybrid_pressure_coefficients(sizing.nz)
     arrays = init_baroclinic_state_numpy(
-        raw, vertical, sizing, adiabatic, hydrostatic, moist_phys
+        raw, vertical, sizing, adiabatic, hydrostatic, moist_phys, part
     )
-    return state_mod.DycoreState.from_numpy(arrays, device, dtype, scatter)
+    return state_mod.DycoreState.from_numpy(arrays, device, dtype)

@@ -15,12 +15,14 @@ The vertical coordinate uses the case's own 79-level ak/bk table
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 import torch
 
 from pace_torch.grid import geometry
 from pace_torch.models.fv3 import state as state_mod
+from pace_torch.parallel.partition import RankPart
 from pace_torch.utils import constants as con
 from pace_torch.utils.gridtools import GridSizing
 
@@ -152,18 +154,31 @@ def tc_coefficients(nz: int, ak=None, bk=None):
     return ak, bk
 
 
-def init_tc_state_numpy(raw_metrics: dict, sizing: GridSizing, ak, bk):
-    """Returns a dict of float64 numpy arrays for every DycoreState field;
-    `raw_metrics` are `grid.generation._generate_metric_terms`'s."""
+def init_tc_state_numpy(raw_metrics: dict, sizing: GridSizing, ak, bk,
+                        part: Optional[RankPart] = None):
+    """Returns a dict of float64 numpy arrays for every DycoreState field,
+    of the whole cube or of the block `part` (`Partition.part(rank)`)
+    holds; `raw_metrics` are `grid.generation._generate_metric_terms`'s.
+    Every point takes its value from the metrics at itself and its i + 1
+    and j + 1 neighbours (no halo update), so a block is the whole cube's
+    cut."""
     N = sizing.N
+    part = part if part is not None else RankPart.whole(sizing.n,
+                                                        sizing.halo)
+    b = part.box
+    # the block, and its i + 1 and j + 1 lines where the storage has them:
+    # the D-grid winds are read one line past the block by the A-grid ones
+    t = slice(b.t0, b.t1)
+    ib, jb = slice(b.i0, b.i1), slice(b.j0, b.j1)
+    ix, jx = slice(b.i0, min(b.i1 + 1, N)), slice(b.j0, min(b.j1 + 1, N))
     calc = _calc()
     hz = raw_metrics["horizontal"]
     lon, lat = hz["lon"], hz["lat"]
-    dx, dy = hz["dx"], hz["dy"]
-    dxa, dya = hz["dxa"], hz["dya"]
-    lon_a = np.nan_to_num(hz["lon_agrid"], nan=0.0)
-    lat_a = np.nan_to_num(hz["lat_agrid"], nan=0.0)
-    out = state_mod.zeros_numpy(sizing)
+    dx, dy = hz["dx"][t], hz["dy"][t]
+    dxa, dya = hz["dxa"][t, ib, jb], hz["dya"][t, ib, jb]
+    lon_a = np.nan_to_num(hz["lon_agrid"][t, ib, jb], nan=0.0)
+    lat_a = np.nan_to_num(hz["lat_agrid"][t, ib, jb], nan=0.0)
+    out = state_mod.zeros_numpy(sizing, part)
 
     # surface pressure and column structure on the A-grid
     ps = _surface_pressure(lon_a, lat_a, calc["p0"])
@@ -196,36 +211,52 @@ def init_tc_state_numpy(raw_metrics: dict, sizing: GridSizing, ak, bk):
         * np.log(pe[..., :-1] / pe[..., 1:])
     )
 
-    # D-grid winds from edge-midpoint gradient-wind balance
-    act = slice(0, N - 1)
+    # D-grid winds from edge-midpoint gradient-wind balance, zero on the
+    # storage's last line; u on the block's lines j and j + 1, v on its
+    # lines i and i + 1
     nz = sizing.nz
-    u = np.zeros((6, N, N, nz))
-    u[:, :-1] = _edge_wind(
-        lon[:, act], lat[:, act], lon[:, 1:], lat[:, 1:], ak, bk, calc
-    )
-    v = np.zeros((6, N, N, nz))
-    v[:, :, :-1] = _edge_wind(
-        lon[:, :, act], lat[:, :, act], lon[:, :, 1:], lat[:, :, 1:],
-        ak, bk, calc,
-    )
+
+    def edge_winds(rows, cols, di, dj):
+        w = np.zeros((b.t1 - b.t0, rows.stop - rows.start,
+                      cols.stop - cols.start, nz))
+        if di:
+            rows = slice(rows.start, min(rows.stop, N - 1))
+        else:
+            cols = slice(cols.start, min(cols.stop, N - 1))
+        to_rows = slice(rows.start + di, rows.stop + di)
+        to_cols = slice(cols.start + dj, cols.stop + dj)
+        w[:, :rows.stop - rows.start, :cols.stop - cols.start] = _edge_wind(
+            lon[t, rows, cols], lat[t, rows, cols],
+            lon[t, to_rows, to_cols], lat[t, to_rows, to_cols],
+            ak, bk, calc,
+        )
+        return w
+
+    u = edge_winds(ib, jx, 1, 0)
+    v = edge_winds(ix, jb, 0, 1)
 
     # A-grid winds by dx/dy-weighted averaging (reference
-    # _interpolate_winds_dgrid_agrid, vort=True branch)
-    ua = np.zeros_like(u)
-    va = np.zeros_like(v)
+    # _interpolate_winds_dgrid_agrid, vort=True branch), zero on the
+    # storage's last line
+    ua = np.zeros(u.shape[:2] + (b.j1 - b.j0, nz))
+    va = np.zeros((b.t1 - b.t0, b.i1 - b.i0) + v.shape[2:])
+    ju, iv = min(b.j1, N - 1) - b.j0, min(b.i1, N - 1) - b.i0
     # padding cells divide by zero/NaN geometry; nan_to_num below zeroes them
     with np.errstate(invalid="ignore", divide="ignore"):
-        ua[:, :, :-1] = 0.5 * (
-            u[:, :, :-1] * dx[:, :, :-1, None] + u[:, :, 1:] * dx[:, :, 1:, None]
-        ) / dxa[:, :, :-1, None]
-        va[:, :-1] = 0.5 * (
-            v[:, :-1] * dy[:, :-1, :, None] + v[:, 1:] * dy[:, 1:, :, None]
-        ) / dya[:, :-1, :, None]
+        ua[:, :, :ju] = 0.5 * (
+            u[:, :, :ju] * dx[:, ib, b.j0:b.j0 + ju, None]
+            + u[:, :, 1:ju + 1] * dx[:, ib, b.j0 + 1:b.j0 + ju + 1, None]
+        ) / dxa[:, :, :ju, None]
+        va[:, :iv] = 0.5 * (
+            v[:, :iv] * dy[:, b.i0:b.i0 + iv, jb, None]
+            + v[:, 1:iv + 1] * dy[:, b.i0 + 1:b.i0 + iv + 1, jb, None]
+        ) / dya[:, :iv, :, None]
 
     for name, val in (
         ("delp", delp), ("delz", delz), ("pe", pe), ("peln", peln),
         ("pk", pk), ("pkz", pkz), ("ps", pe[..., -1]), ("pt", pt),
-        ("qvapor", qvapor), ("u", u), ("v", v),
+        ("qvapor", qvapor), ("u", u[:, :, :b.j1 - b.j0]),
+        ("v", v[:, :b.i1 - b.i0]),
         ("ua", np.nan_to_num(ua)), ("va", np.nan_to_num(va)),
     ):
         out[name] = np.nan_to_num(val, nan=0.0, posinf=0.0, neginf=0.0)
@@ -233,9 +264,11 @@ def init_tc_state_numpy(raw_metrics: dict, sizing: GridSizing, ak, bk):
 
 
 def init_tc_state(sizing: GridSizing, ak=None, bk=None, *, device="cuda",
-                  dtype=torch.float32, scatter=None) -> state_mod.DycoreState:
-    """Build a DycoreState for the tropical cyclone test case (one rank's
-    part where `scatter` is given).
+                  dtype=torch.float32,
+                  part: Optional[RankPart] = None) -> state_mod.DycoreState:
+    """Build a DycoreState for the tropical cyclone test case: of the whole
+    cube, or of one rank's block (`part`, `Partition.part(rank)`), which is
+    all that is built.
 
     The analytic column is integrated against whatever ak/bk table is
     provided (like the reference, which accepts any vertical grid): the
@@ -245,5 +278,5 @@ def init_tc_state(sizing: GridSizing, ak=None, bk=None, *, device="cuda",
 
     ak, bk = tc_coefficients(sizing.nz, ak, bk)
     raw = _generate_metric_terms(sizing.n, sizing.halo)
-    arrays = init_tc_state_numpy(raw, sizing, ak, bk)
-    return state_mod.DycoreState.from_numpy(arrays, device, dtype, scatter)
+    arrays = init_tc_state_numpy(raw, sizing, ak, bk, part)
+    return state_mod.DycoreState.from_numpy(arrays, device, dtype)

@@ -4,8 +4,8 @@ The same 32 fields, metadata and global padded layout (6, N, N[, nz]) as
 `pace_tpu.models.fv3.state` (reference ai2cm/pace
 fv3core/pace/fv3core/initialization/dycore_state.py:11).  Vertical sizes
 are exact: nz for layer quantities, nz+1 for interface quantities.  A rank
-of a multi-rank run holds its own tiles: a leading axis of 6 / t
-(`from_numpy(..., scatter=...)`, parallel/partition.py).
+of a multi-rank run holds its block (`Partition.part(rank)`,
+parallel/partition.py): its tiles and the lines of each it holds.
 """
 
 from __future__ import annotations
@@ -74,12 +74,13 @@ TRACER_NAMES = (
 NQ = 8
 
 
-def zeros_numpy(sizing) -> Dict[str, np.ndarray]:
+def zeros_numpy(sizing, part=None) -> Dict[str, np.ndarray]:
     """float64 zeros for every field, in the padded layout (6, N, N[, nz
-    or nz + 1])."""
+    or nz + 1]), or on the block `part` (a `RankPart`) holds."""
     arrays = {}
     for name, (_, dims, _) in FIELD_METADATA.items():
-        shape = [6, sizing.N, sizing.N]
+        shape = list(part.shape if part is not None
+                     else (6, sizing.N, sizing.N))
         if dims[-1] == Z:
             shape.append(sizing.nz)
         elif dims[-1] == ZI:
@@ -124,14 +125,12 @@ class DycoreState:
     phis: torch.Tensor
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device, dtype,
-                   scatter=None) -> "DycoreState":
+    def from_numpy(cls, arrays: dict, device, dtype) -> "DycoreState":
         """Build from numpy arrays keyed by field name (the layout of
-        `pace_tpu`'s DycoreState leaves), on `device` with `dtype`; with
-        `scatter` (`Partition.scatterer(rank)`) one rank's part of them."""
-        cut = scatter or (lambda a: a)
+        `pace_tpu`'s DycoreState leaves, or a rank's block of it), on
+        `device` with `dtype`."""
         return cls(**{
-            name: torch.tensor(np.asarray(cut(arrays[name])), dtype=dtype,
+            name: torch.tensor(np.asarray(arrays[name]), dtype=dtype,
                                device=device)
             for name in FIELD_METADATA
         })

@@ -105,8 +105,9 @@ def pk3_halo(pk3, delp, ptop, akap, dom):
     return out
 
 
-def ray_fast(u, v, w, dp_ref, pfull, dt, ptop, rf_cutoff, tau):
-    """Rayleigh sponge-layer friction above rf_cutoff (ray_fast.py).
+def ray_fast(u, v, w, dp_ref, pfull, dt, ptop, rf_cutoff, tau, hydrostatic):
+    """Rayleigh sponge-layer friction above rf_cutoff (ray_fast.py); a
+    hydrostatic model's w is left alone.
 
     dp_ref/pfull: (nz,) numpy columns. Returns (u, v, w)."""
     dp_ref = np.asarray(dp_ref)
@@ -135,7 +136,8 @@ def ray_fast(u, v, w, dp_ref, pfull, dt, ptop, rf_cutoff, tau):
     dm_v = torch.where(mc, (1.0 - rf_j) * dpr * v, 0.0).sum(-1, keepdim=True)
     v = torch.where(mc, v * rf_j, v)
     v = torch.where(mn, v + dm_v / p_ref_total, v)
-    w = torch.where(mc, w * rf_j, w)
+    if not hydrostatic:
+        w = torch.where(mc, w * rf_j, w)
     return u, v, w
 
 

@@ -23,19 +23,37 @@ Ranks are numbered host-major: with a `dcn_mesh_shape` (the hosts' grid)
 each host holds a contiguous run of ranks, a block of shape
 `layout / dcn_mesh_shape` of the mesh, as `torchrun` numbers one node's
 processes together.
+
+`Partition.part(rank)` (`RankPart`) is what the initial-state builders and
+the restart readers read to build a rank's block alone: the held block,
+which of its points are compute points of their tile, and the source of
+each held point in the topology's halo gather.  The whole cube is the one
+part of layout (1, 1, 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from pace_torch.parallel.topology import get_topology
 from pace_torch.utils import constants
 from pace_torch.utils.gridtools import Domain, GridSizing
+
+# the compute points of a staggering: storage lines [h, h + n + extra)
+# along i and along j
+_COMPUTE_EXTRA = {"center": (0, 0), "x_iface": (1, 0), "y_iface": (0, 1),
+                  "corner": (1, 1)}
+
+
+def is_compute(stagger: str, n: int, h: int, i, j):
+    """Whether the storage points (i, j) of a tile (int arrays) are compute
+    points of `stagger` (center, x_iface, y_iface or corner)."""
+    ei, ej = _COMPUTE_EXTRA[stagger]
+    return (i >= h) & (i < h + n + ei) & (j >= h) & (j < h + n + ej)
 
 
 def check_layout(layout, dcn_mesh_shape=None) -> Tuple[int, int, int]:
@@ -187,11 +205,11 @@ class Partition:
             return array[b.t0:b.t1, lo:hi]
         return array[b.t0:b.t1]
 
-    def scatterer(self, rank: int) -> Callable:
-        """`scatter` bound to `rank`: the `scatter` argument of the state,
-        grid and initial-state builders, which cut what they build on the
-        host to the rank's part."""
-        return functools.partial(self.scatter, rank=rank)
+    def part(self, rank: int) -> "RankPart":
+        """What `rank` holds (`RankPart`): its `cut` is the `scatter`
+        argument of the grid builders, and the part itself the `part`
+        argument of the initial-state builders."""
+        return RankPart(self, rank)
 
     def gather(self, parts: Sequence):
         """The global array from every rank's held part (in rank order):
@@ -214,3 +232,65 @@ class Partition:
             out[b.index] = part[:, b.i0 - lb.i0:b.i1 - lb.i0,
                                 b.j0 - lb.j0:b.j1 - lb.j0]
         return out
+
+
+class RankPart:
+    """What one rank holds: the block `Partition.local_box(rank)` of the
+    padded storage (6, N, N), which held points are compute points of their
+    tile (points in another rank's box included), and for each held point
+    the source (tile, i, j) that the topology's halo gather reads (for a
+    vector component also the source component and sign).  The initial
+    state is built from these on the block alone; the builders take the
+    whole cube as `RankPart.whole`."""
+
+    def __init__(self, partition: Partition, rank: int):
+        self.partition, self.rank = partition, rank
+        self.box = partition.local_box(rank)
+        self.n, self.h, self.N = partition.n, partition.h, partition.N
+
+    @classmethod
+    def whole(cls, n: int, h: int = constants.N_HALO_DEFAULT) -> "RankPart":
+        """The whole cube, the one part of layout (1, 1, 1)."""
+        return cls(Partition((1, 1, 1), n, h), 0)
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return self.box.shape
+
+    def cut(self, array, axis: Optional[int] = None):
+        """This rank's part of a whole-cube array (`Partition.scatter`)."""
+        return self.partition.scatter(array, self.rank, axis)
+
+    def indices(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The storage indices (tile, i, j) of every held point, each of
+        the block's shape."""
+        b = self.box
+        return tuple(np.meshgrid(np.arange(b.t0, b.t1),
+                                 np.arange(b.i0, b.i1),
+                                 np.arange(b.j0, b.j1), indexing="ij"))
+
+    def compute(self, stagger: str = "center") -> np.ndarray:
+        """Bool mask of the block: the held compute points of `stagger`."""
+        _, i, j = self.indices()
+        return is_compute(stagger, self.n, self.h, i, j)
+
+    def _held(self, spec) -> tuple:
+        b = self.box.index
+        out = [np.asarray(spec.src_tile)[b], np.asarray(spec.src_i)[b],
+               np.asarray(spec.src_j)[b]]
+        if spec.src_comp is not None:
+            out += [np.asarray(spec.src_comp)[b], np.asarray(spec.sign)[b]]
+        return tuple(out)
+
+    def scalar_sources(self, stagger: str = "center") -> tuple:
+        """(tile, i, j) of the point the halo gather of a `stagger` scalar
+        reads for each held point (the point itself outside the halo)."""
+        return self._held(get_topology(self.n, self.h).scalar_spec(stagger))
+
+    def vector_sources(self, u_stagger: str, v_stagger: str) -> tuple:
+        """For each component of a vector pair, (tile, i, j, comp, sign) of
+        each held point: the halo gather reads component `comp` (0 u, 1 v)
+        at (tile, i, j) and multiplies it by `sign`."""
+        specs = get_topology(self.n, self.h).vector_spec(u_stagger,
+                                                         v_stagger)
+        return tuple(self._held(spec) for spec in specs)

@@ -6,7 +6,7 @@ files written by the Fortran FV3 model (`fv_core.res.tile{1..6}.nc`,
 `fv_srf_wnd.res.tile*.nc`, `fv_tracer.res.tile*.nc`, optional
 `sfc_data`/`phy_data`, plus the `coupler.res` text timestamp) into
 whole-cube (6, N, N[, nz]) numpy arrays in the port's padded global
-storage layout.
+storage layout, or into the block one rank holds (its tiles' files only).
 
 Files are NetCDF3 classic / 64-bit-offset, read with scipy.  Reference
 behaviours preserved: file naming incl. `label` prefix
@@ -79,29 +79,43 @@ def get_current_date_from_coupler_res(path: str) -> datetime:
     return datetime(year, month, day, hour, minute, second)
 
 
-def _read_tile_vars(filename: str, only_restart_names) -> Dict[str, np.ndarray]:
+def _read_tile_vars(filename: str, only_restart_names, h: int,
+                    box) -> Dict[str, tuple]:
+    """The restart variables of one tile file, each as (its (x, y) size,
+    the lines of it inside the storage window `box` (a partition `Box`
+    whose i and j are read) in (x, y[, z]) order, and where they start in
+    the window).  Read through a memory map: no more than the window of a
+    variable is copied."""
     from scipy.io import netcdf_file
 
     out = {}
-    with netcdf_file(filename, "r", mmap=False) as nc:
-        for var_name, var in nc.variables.items():
+    with netcdf_file(filename, "r", mmap=True) as nc:
+        for var_name in list(nc.variables):
             if var_name not in RESTART_TO_FIELD:
                 continue
             if only_restart_names is not None \
                     and var_name not in only_restart_names:
                 continue
-            data = np.asarray(var[:], dtype=np.float64)
+            var = nc.variables[var_name]
+            data = var.data
             # the Fortran files give 3-D fields as (Time, z, y, x) and
             # surface fields as (Time, y, x): drop the Time axis by its name
             # (the reference package goes by rank, and so keeps a surface
             # field's Time axis as a trailing level of size 1)
             if data.ndim == 4 or var.dimensions[:1] == ("Time",):
                 data = data[0]
-            if data.ndim == 3:      # (z, y, x) -> (x, y, z)
-                data = np.transpose(data, (2, 1, 0))
-            elif data.ndim == 2:    # (y, x) -> (x, y)
-                data = data.T
-            out[var_name] = data
+            ny, nx = data.shape[-2:]
+            x0, x1 = max(box.i0 - h, 0), min(box.i1 - h, nx)
+            y0, y1 = max(box.j0 - h, 0), min(box.j1 - h, ny)
+            window = np.array(data[..., y0:max(y1, y0), x0:max(x1, x0)],
+                              dtype=np.float64)
+            # (z, y, x) -> (x, y, z); (y, x) -> (x, y)
+            window = np.ascontiguousarray(
+                np.transpose(window, (2, 1, 0)) if window.ndim == 3
+                else window.T)
+            out[var_name] = ((nx, ny), window, (x0 + h - box.i0,
+                                                y0 + h - box.j0))
+            del var, data
     return out
 
 
@@ -111,20 +125,28 @@ def open_restart(
     label: str = "",
     only_names: Optional[Iterable[str]] = None,
     dtype=np.float32,
+    part=None,
 ) -> Dict[str, np.ndarray]:
-    """Load Fortran restart files into whole-cube padded arrays.
+    """Load Fortran restart files into whole-cube padded arrays, or into
+    the block a rank holds.
 
     Args:
         dirname: directory holding the .res tile files
         sizing: GridSizing (n, nz, halo) of the target storage
         label: optional filename prefix (reference `label` arg)
         only_names: optional subset of DycoreState field names to load
+        part: a rank's `RankPart` (`Partition.part(rank)`): only the files
+            of its tiles are read, and of each variable its block
     Returns:
-        dict of field name -> (6, N, N[, nz]) numpy array (halos zero,
-        compute domain filled), plus "time" when coupler.res exists.
+        dict of field name -> (6, N, N[, nz]) numpy array, or the block's
+        (tiles, Ni, Nj[, nz]) (halos zero, compute domain filled), plus
+        "time" when coupler.res exists.
     """
+    from pace_torch.parallel.partition import RankPart
+
     n, h = sizing.n, sizing.halo
-    N = sizing.N if hasattr(sizing, "N") else n + 2 * h
+    part = part if part is not None else RankPart.whole(n, h)
+    box = part.box
     only_restart = None
     if only_names is not None:
         only_restart = {
@@ -133,35 +155,31 @@ def open_restart(
         }
 
     per_tile: list = []
-    for tile in range(6):
+    for tile in range(box.t0, box.t1):
         filenames = restart_filenames(dirname, tile, label)
         if not any(os.path.exists(f) for f in filenames):
             raise ValueError(f"no restart files found at {dirname}")
-        tile_vars: Dict[str, np.ndarray] = {}
+        tile_vars: Dict[str, tuple] = {}
         for filename in filenames:
             if os.path.exists(filename):
-                tile_vars.update(_read_tile_vars(filename, only_restart))
+                tile_vars.update(_read_tile_vars(filename, only_restart, h,
+                                                 box))
         per_tile.append(tile_vars)
 
     state: Dict[str, np.ndarray] = {}
     for rn in per_tile[0]:
         field, (ex, ey) = RESTART_TO_FIELD[rn]
-        tiles = [per_tile[t][rn] for t in range(6)]
-        sample = tiles[0]
-        if sample.ndim == 3:
-            nz = sample.shape[-1]
-            full = np.zeros((6, N, N, nz), dtype)
-        else:
-            full = np.zeros((6, N, N), dtype)
-        for t, data in enumerate(tiles):
-            nx, ny = data.shape[0], data.shape[1]
+        sample = per_tile[0][rn][1]
+        block = np.zeros(part.shape + sample.shape[2:], dtype)
+        for t, tile_vars in enumerate(per_tile):
+            (nx, ny), data, (i0, j0) = tile_vars[rn]
             if (nx, ny) != (n + ex, n + ey):
                 raise ValueError(
-                    f"{rn}: tile {t + 1} has shape {data.shape[:2]}, "
+                    f"{rn}: tile {box.t0 + t + 1} has shape {(nx, ny)}, "
                     f"expected ({n + ex}, {n + ey})"
                 )
-            full[t, h:h + nx, h:h + ny] = data
-        state[field] = full
+            block[t, i0:i0 + data.shape[0], j0:j0 + data.shape[1]] = data
+        state[field] = block
 
     coupler = os.path.join(dirname, _prepend_label(COUPLER_RES_NAME, label))
     if os.path.exists(coupler):

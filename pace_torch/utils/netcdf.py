@@ -115,21 +115,24 @@ def write_dataset(
         f.close()
 
 
-def read_dataset(filename: str) -> Dict[str, np.ndarray]:
-    """Read all variables from a NetCDF file into plain numpy arrays."""
+def read_dataset(filename: str, cut=None) -> Dict[str, np.ndarray]:
+    """Read all variables from a NetCDF file into plain numpy arrays, read
+    one at a time from a memory map of the file; with `cut` (a function of
+    an array, such as `RankPart.cut`) each is cut as it is read, so that
+    no whole variable is held."""
     from scipy.io import netcdf_file
 
-    f = netcdf_file(filename, "r", mmap=False)
-    try:
-        return {
-            # NetCDF stores big-endian; convert to native byte order
-            name: np.ascontiguousarray(var[:]).astype(
-                np.dtype(var[:].dtype).newbyteorder("="), copy=False
-            )
-            for name, var in f.variables.items()
-        }
-    finally:
-        f.close()
+    out = {}
+    with netcdf_file(filename, "r", mmap=True) as f:
+        for name in list(f.variables):
+            data = f.variables[name].data
+            data = data if cut is None else cut(data)
+            # NetCDF stores big-endian: a copy in native byte order, so that
+            # nothing refers to the map once the file is closed
+            out[name] = np.array(data, order="C",
+                                 dtype=data.dtype.newbyteorder("="))
+            del data
+    return out
 
 
 def read_dataset_with_dims(

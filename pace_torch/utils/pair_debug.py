@@ -140,7 +140,7 @@ def layout_placement(partition, comm=None):
             if isinstance(leaf, Domain):
                 return partition.domain(rank)
             if isinstance(leaf, GridData):
-                return leaf.scattered(partition.scatterer(rank))
+                return leaf.scattered(partition.part(rank).cut)
             if not _tiled(leaf, 6):
                 return leaf
             part = partition.scatter(leaf, rank)

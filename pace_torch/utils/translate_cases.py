@@ -1197,8 +1197,8 @@ class TranslatePK3Halo(BaseOpCase):
 @register("Ray_Fast")
 class TranslateRayFast(BaseOpCase):
     """reference translate_ray_fast.py TranslateRay_Fast: u/v/w + dp/
-    pfull reference columns + dt/ptop -> Rayleigh-damped winds (the
-    nonhydrostatic form: the port runs the nonhydrostatic dycore only)."""
+    pfull reference columns + dt/ptop -> Rayleigh-damped winds (w left
+    alone under a hydrostatic config)."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
@@ -1223,13 +1223,10 @@ class TranslateRayFast(BaseOpCase):
     def run(self, t):
         from pace_torch.ops.nh_p_grad import ray_fast
 
-        if self.config.hydrostatic:
-            raise NotImplementedError("the port's ray_fast is "
-                                      "nonhydrostatic only")
         u, v, w = ray_fast(
             t["u"], t["v"], t["w"], np.asarray(t["dp"]),
             np.asarray(t["pfull"]), float(t["dt"]), float(t["ptop"]),
-            self.config.rf_cutoff, self.config.tau,
+            self.config.rf_cutoff, self.config.tau, self.config.hydrostatic,
         )
         return {"u": u, "v": v, "w": w}
 

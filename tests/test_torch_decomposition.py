@@ -98,7 +98,7 @@ def blocks(whole):
                 with torch_threads(1):
                     grid = GridData.from_numpy(
                         arrays, "cpu", torch.float64,
-                        scatter=partition.scatterer(rank))
+                        scatter=partition.part(rank).cut)
                     return apply_op_suite(
                         {k: cut(v, partition, rank) for k, v in s.items()},
                         grid, topo,

@@ -14,13 +14,13 @@ places), halo and padding points included; the step-1 state also lies
 within 1e-9 of tests/golden/c12_dycore_digest.json.
 
 Tier 1 runs the C12/79 float64 dycore at `(2, 1, 1)` (ranks of whole
-tiles) and `(1, 2, 2)` (ranks of quarter tiles) for two steps, beside the
-one-process run; the slow tier adds `(3, 1, 1)`, `(6, 1, 1)`, `(2, 2, 2)`
-and `(1, 2, 4)`, the coupled step and the dynamic tracer subcycle (whose
-trip count is a maximum over ranks) at `(2, 1, 1)` and `(1, 2, 2)`, and
-`baroclinic_c12.yaml` at `[2, 1, 1]` and `[1, 2, 2]` through `torchrun -m
-pace_torch.driver.run`, whose diagnostics and restart files must be those
-of the one-rank run.
+tiles) and `(1, 2, 2)` (ranks of quarter tiles) for two steps, the ranks of
+both layouts started together, beside the one-process run; the slow tier
+adds `(3, 1, 1)`, `(6, 1, 1)`, `(2, 2, 2)` and `(1, 2, 4)`, the coupled
+step and the dynamic tracer subcycle (whose trip count is a maximum over
+ranks) at `(2, 1, 1)` and `(1, 2, 2)`, and `baroclinic_c12.yaml` at
+`[2, 1, 1]` and `[1, 2, 2]` through `torchrun -m pace_torch.driver.run`,
+whose diagnostics and restart files must be those of the one-rank run.
 
 Also here: the plain transport on a rank's 1 or 3 tiles equals the same
 tiles of its six-tile result."""
@@ -151,9 +151,14 @@ def _run_and_compare(tmp_path, layout, config, steps):
     """Start the ranks, run the one-process steps beside them (or take
     them from an earlier layout's run), and hold every field of every step
     to bit-for-bit equality."""
+    return _compare(tmp_path, _start_ranks(tmp_path, layout, config, steps),
+                    config, steps)
+
+
+def _compare(tmp_path, procs, config, steps):
+    """_run_and_compare with the ranks started already."""
     from pace_torch.testing import torch_threads
 
-    procs = _start_ranks(tmp_path, layout, config, steps)
     try:
         # two threads: the one process does twice a rank's work beside the
         # ranks (tests/test_torch_dycore.py's steps take two as well)
@@ -170,9 +175,28 @@ def _run_and_compare(tmp_path, layout, config, steps):
     return want
 
 
-@pytest.mark.parametrize("layout", [(2, 1, 1), (1, 2, 2)],
+TIER1 = [(2, 1, 1), (1, 2, 2)]
+
+
+@pytest.fixture(scope="module")
+def tier1_ranks(tmp_path_factory):
+    """The rank processes of both tier-1 layouts, started together when
+    the first of their tests starts: {layout: (workdir, processes)}."""
+    started = {}
+    for layout in TIER1:
+        workdir = tmp_path_factory.mktemp("x".join(map(str, layout)))
+        started[layout] = workdir, _start_ranks(workdir, layout, DYCORE, 2)
+    yield started
+    for _, procs in started.values():
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+@pytest.mark.parametrize("layout", TIER1,
                          ids=lambda s: "x".join(map(str, s)))
-def test_two_ranks_equal_one_process_and_the_digest(tmp_path, layout):
+def test_two_ranks_equal_one_process_and_the_digest(tier1_ranks, layout):
     """C12/79 float64, two steps at (2, 1, 1) and at (1, 2, 2): bit for bit
     against the one process, and step 1 within 1e-9 of the reference's
     digest."""
@@ -180,10 +204,11 @@ def test_two_ranks_equal_one_process_and_the_digest(tmp_path, layout):
     from pace_torch.utils.gridtools import GridSizing
     from tests.golden.make_golden import state_digest
 
-    _run_and_compare(tmp_path, layout, DYCORE, 2)
+    workdir, procs = tier1_ranks[layout]
+    _compare(workdir, procs, DYCORE, 2)
     with open(REPO / "tests" / "golden" / "c12_dycore_digest.json") as f:
         golden = json.load(f)["step1"]
-    step1 = np.load(tmp_path / "state_1.npz")
+    step1 = np.load(workdir / "state_1.npz")
     state = DycoreState.from_numpy(step1, "cpu", torch.float64)
     got = state_digest(state, GridSizing(N_, NZ))
     for name, ref in golden.items():

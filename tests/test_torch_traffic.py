@@ -210,7 +210,7 @@ def test_record_tracer_advection_then_replay_one_tile(topo):
         solo = run(generate_grid_data(N_, 79, device="cpu",
                                       dtype=torch.float64,
                                       scatter=Partition((6, 1, 1), N_)
-                                      .scatterer(tile)),
+                                      .part(tile).cut),
                    slice(tile, tile + 1))
     for name, value in out.items():
         assert np.isfinite(value[:, H:H + N_, H:H + N_].numpy()).all()
@@ -232,18 +232,22 @@ def test_record_a_dycore_step_then_replay_one_tile():
     sizing, tile = GridSizing(N_, 79), 2
     config = DynamicalCoreConfig(do_sat_adj=False)
 
-    def step(scatter=None):
-        kw = dict(device="cpu", dtype=torch.float64, scatter=scatter)
-        core = DynamicalCore(config, sizing,
-                             generate_grid_data(N_, 79, **kw), timestep=225.0)
-        return core.step_dynamics(init_baroclinic_state(sizing, **kw))
+    def step(part=None):
+        kw = dict(device="cpu", dtype=torch.float64)
+        core = DynamicalCore(
+            config, sizing,
+            generate_grid_data(N_, 79, **kw,
+                               scatter=None if part is None else part.cut),
+            timestep=225.0)
+        return core.step_dynamics(init_baroclinic_state(sizing, **kw,
+                                                        part=part))
 
     rec = HaloTrafficRecorder.recording()
     with rec:
         full = step()
     replay = rec.replaying(tile=tile)
     with replay:
-        solo = step(Partition((6, 1, 1), N_).scatterer(tile))
+        solo = step(Partition((6, 1, 1), N_).part(tile))
     assert replay.cursor == len(rec.calls) > 20
     for name in full.__dataclass_fields__:
         want = getattr(full, name)[tile]
