@@ -111,20 +111,28 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      layout [6, 2, 2], multihost false and 2 steps through `torchrun -m
      pace_torch.driver.run` (24 ranks), its files against the one-rank run
      of the same cut yaml;
-  16. each rank builds only its own block of the initial state: ranks 0,
-     1, 5 and 95 of c384_multihost_emulator.yaml's [6, 4, 4] mesh at n =
-     384 (a tile's south-west corner, a west edge, an interior box, tile
-     5's north-east corner), each built alone in a process of its own
-     (`chip_smoke.py --local-build DIR RANK`), grid and state float32 on
-     the card, and the whole cube built as one process builds it: each
-     rank's float64 host arrays identical to the whole cube's cut, every
-     leaf; the host memory each rank's build adds to its process below a
-     fifth of what the whole cube's adds (with seconds and device bytes);
-     then that yaml cut to nx_tile 96 at [6, 2, 2] (24 ranks of 48 x 48
-     cells; at 192 the 24 ranks outgrow the card), 2 steps through
-     `torchrun -m pace_torch.driver.run` against its one-rank run (which
-     runs beside 16.1), each rank's host and card peaks and
-     initialization from the perf JSON.
+  16. each rank builds only its own block of the grid and of the initial
+     state: 16.1, ranks 0, 1, 5 and 95 of c384_multihost_emulator.yaml's
+     [6, 4, 4] mesh at n = 384 (a tile's south-west corner, a west edge,
+     an interior box, tile 5's north-east corner), each built alone in a
+     process of its own (`chip_smoke.py --local-build DIR RANK`; its
+     metric terms evaluated at its block's points), grid and state
+     float32 on the card, and the whole cube built as one process builds
+     it: each rank's float64 host arrays of grid and state identical to
+     the whole cube's cut bit for bit, every leaf (the four area extremes
+     among them); the host memory each rank's build adds to its process
+     at most 0.10 of what the whole cube's adds (with seconds, device
+     bytes and the host bytes after each stage); 16.3, rank 0 of that
+     mesh writes a float32 restart and one diagnostics record of the
+     yaml's names (`chip_smoke.py --root-write DIR WHICH SEED`), the 95
+     other ranks' blocks made from a seed one at a time by a stand-in for
+     the gather: the files read back equal to every rank's block, each
+     write adding at most three whole-cube fields to the host; then 16.2,
+     that yaml cut to nx_tile 96 at [6, 2, 2] (24 ranks of 48 x 48 cells;
+     at 192 the 24 ranks outgrow the card), 2 steps through `torchrun -m
+     pace_torch.driver.run` against its one-rank run (which runs beside
+     16.1 and 16.3), rank 0's and the other ranks' host peaks, card peaks
+     and initialization from the perf JSON.
 The last three lines are a JSON object with one entry per kernel, the
 card's name and power limit, and {"ok": true, "device": {...}}.
 """
@@ -486,8 +494,7 @@ def make_core(n, dtype, dt, device="cuda", part=None, topology=None,
               **settings):
     """A baroclinic C`n`/79 dycore and its start: of the whole cube, or
     with `part` (`Partition.part(rank)`) and a rank `topology`, of one
-    rank's block (the grid cut from the whole cube's, the state built on
-    the block alone)."""
+    rank's block (grid and state built on the block alone)."""
     from pace_torch.grid.generation import generate_grid_data
     from pace_torch.models.fv3.config import DynamicalCoreConfig
     from pace_torch.models.fv3.dynamics import DynamicalCore
@@ -496,7 +503,7 @@ def make_core(n, dtype, dt, device="cuda", part=None, topology=None,
 
     sizing = GridSizing(n, 79)
     gd = generate_grid_data(n, 79, device=device, dtype=dtype,
-                            scatter=None if part is None else part.cut)
+                            part=part)
     config = DynamicalCoreConfig(do_sat_adj=False, **settings)
     core = DynamicalCore(config, sizing, gd, timestep=dt, topology=topology)
     state = init_baroclinic_state(sizing, device=device, dtype=dtype,
@@ -2310,7 +2317,7 @@ def _split_log(rank, msg):
         log(f"[15] {msg}")
 
 
-def rank_split_c96(comm, device, layout=(2, 2, 2)):
+def rank_split_c96(comm, device, layout=(2, 2, 2), start_peak=None):
     """15.2: phase 8's coupled emulator step (the dycore and physics
     settings of c384_multihost_emulator.yaml at C96/79 float32, dt 150 s)
     behind the Driver at `layout`: one warm-up and two timed steps on every
@@ -2320,13 +2327,23 @@ def rank_split_c96(comm, device, layout=(2, 2, 2)):
 
     from pace_torch.driver import Driver
 
+    import resource
+
+    def host_peak():
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+    # the host peak (kilobytes on Linux) after each stage: where the
+    # rank's peak is set
     rank, steps = comm.rank, 2
+    stages = [("kernels loaded", start_peak), ("after 15.1", host_peak())]
     t0 = time.perf_counter()
     driver = Driver.from_dict(emulator_driver_config(
         mesh=dict(layout=list(layout))))
     setup = time.perf_counter() - t0
+    stages.append(("Driver built", host_peak()))
     driver.step()
     torch.cuda.synchronize(device)
+    stages.append(("warm-up step", host_peak()))
     names = [f.name for f in dataclasses.fields(driver.state.dycore_state)]
     state_bytes = sum(getattr(driver.state.dycore_state, k).nbytes
                       for k in names)
@@ -2349,13 +2366,9 @@ def rank_split_c96(comm, device, layout=(2, 2, 2)):
         raise AssertionError(f"rank {rank}: launches {launches}, expected "
                              f"{expect}")
     dom = driver.dycore.domain
-    import resource
-
-    # the host memory the rank peaked at (it builds the whole cube's
-    # float64 grid and state and cuts them), kilobytes on Linux
-    host = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    stages.append(("timed steps", host_peak()))
     mine = dict(rank=rank, device=str(device), setup_s=setup, ms=ms,
-                host_peak_bytes=host,
+                host_peak_bytes=stages[-1][1], host_stages=stages,
                 block=[dom.Ni, dom.Nj], launches=launches,
                 exchanges=exchange["exchanges"] / steps,
                 exchange_bytes=exchange["bytes_sent"] / steps,
@@ -2415,6 +2428,9 @@ def split_rank_main(out: str) -> None:
     device = comm_mod.rank_device("cuda")
     comm = comm_mod.init_process_group(device)
     _cuda.library()
+    import resource
+
+    start_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     _split_log(comm.rank, f"{comm.size} ranks started by torchrun on "
                f"{torch.cuda.device_count()} card(s): {comm.describe()}")
     result = dict(backend=comm.describe())
@@ -2423,7 +2439,7 @@ def split_rank_main(out: str) -> None:
     result["pair_debug_s"] = time.perf_counter() - t0
     _split_log(comm.rank, f"15.1 done: {result['pair_debug']}")
     t0 = time.perf_counter()
-    result["c96"] = rank_split_c96(comm, device)
+    result["c96"] = rank_split_c96(comm, device, start_peak=start_peak)
     result["c96_s"] = time.perf_counter() - t0
     if comm.rank == 0:
         with open(os.path.join(out, "split.json"), "w") as f:
@@ -2470,7 +2486,8 @@ def run_split_ranks(card) -> tuple:
             f"plan), exchange {r['exchange_ms']:.3f} ms a step (CUDA "
             f"events); memory: state {r['state_bytes']} bytes, temporary "
             f"{r['temp_bytes']}, peak {r['peak_bytes']}; host peak "
-            f"{r['host_peak_bytes']} bytes")
+            f"{r['host_peak_bytes']} bytes (after each stage: "
+            + ", ".join(f"{k} {v}" for k, v in r["host_stages"]) + ")")
     slowest = max(r["ms"] for r in c96["ranks"])
     log(f"[15] 15.2 ms/step: one process on the whole cube "
         f"{c96['ms_one']:.3f}, eight ranks sharing the card {slowest:.3f} "
@@ -2528,6 +2545,9 @@ C384_YAML = "c384_multihost_emulator.yaml"
 # interior box (its halo all other ranks' compute points) and tile 5's
 # north-east corner box
 LOCAL_RANKS = (0, 1, 5, 95)
+# the most a rank's build may add to its process's host memory, as a share
+# of what the whole cube's build adds (PERF.md section 2)
+LOCAL_SHARE = 0.10
 # 16.2: the yaml cut to nx_tile 96 at [6, 2, 2], 24 ranks each holding
 # 48 x 48 cells of one tile.  At nx_tile 192 (96 x 96 cells, the box of a
 # C384 [6, 4, 4] rank) the host holds the 24 ranks but the card does not:
@@ -2544,22 +2564,48 @@ def _log16(msg):
     log(f"[16] {msg}")
 
 
+def _grid_leaves(arrays: dict) -> dict:
+    """{"bundle/name": leaf} of `grid_arrays_numpy`'s nested leaves."""
+    return {f"{bundle}/{name}": np.asarray(value)
+            for bundle, leaves in arrays.items()
+            for name, value in leaves.items()}
+
+
+def _cut_grid_leaves(leaves: dict, partition, rank: int) -> dict:
+    """A whole-cube grid's leaves cut to `rank` as `GridData.from_numpy`
+    cuts them (the vertical leaves and the scalars whole)."""
+    from pace_torch.grid.generation import EDGE_TABLE_AXIS
+
+    out = {}
+    for key, value in leaves.items():
+        bundle, name = key.split("/")
+        if bundle != "vertical" and value.ndim >= 2:
+            value = partition.scatter(value, rank,
+                                      axis=EDGE_TABLE_AXIS.get(name))
+        out[key] = value
+    return out
+
+
 def local_build_main(out: str, which: str, device="cuda") -> None:
     """`chip_smoke.py --local-build OUT WHICH`, one process of 16.1: rank
     WHICH of c384_multihost_emulator.yaml's mesh builds its grid and its
-    initial state alone (float32 on `device`), or with WHICH `whole` the
+    initial state alone (float32 on `device`; its metric terms evaluated
+    at its block's points, `grid/points.py`), or with WHICH `whole` the
     whole cube is built as one process builds it.  Writes OUT/WHICH.json
-    (seconds, host peak, device bytes) and the float64 host arrays before
-    the cast: a rank's own (OUT/rank<r>.npz), or the whole cube's cut to
-    each of LOCAL_RANKS (OUT/cut<r>.npz)."""
+    (seconds, host peak, device bytes, the host's resident and peak
+    bytes after each stage of the build) and the float64 host arrays
+    before the cast, the grid's leaves under "grid/...": a rank's own
+    (OUT/rank<r>.npz), or the whole cube's cut to each of LOCAL_RANKS
+    (OUT/cut<r>.npz)."""
     import dataclasses
 
     from pace_torch.driver import DriverConfig
     from pace_torch.driver.performance import host_peak_bytes
     from pace_torch.grid import eta
     from pace_torch.grid.generation import (
-        _generate_metric_terms,
-        generate_grid_data,
+        GridData,
+        grid_arrays_numpy,
+        raw_metric_terms,
     )
     from pace_torch.models.fv3.init.baroclinic import (
         init_baroclinic_state_numpy,
@@ -2568,6 +2614,9 @@ def local_build_main(out: str, which: str, device="cuda") -> None:
     from pace_torch.parallel.partition import Partition
     from pace_torch.utils.gridtools import GridSizing
 
+    # ru_maxrss at the start: a child of a large process starts from its
+    # parent's resident size there
+    start_maxrss = host_peak_bytes()
     config = DriverConfig.from_yaml(os.path.join(EXAMPLES, C384_YAML))
     if config.initialization.type != "baroclinic":
         raise AssertionError(f"{C384_YAML} starts from "
@@ -2582,35 +2631,67 @@ def local_build_main(out: str, which: str, device="cuda") -> None:
     # 5 GB (PERF.md section 6), pages of the CUDA libraries that the
     # host's processes share
     base = host_rss_bytes()
+    stages = []
     t0 = time.perf_counter()
-    grid = generate_grid_data(n, nz, device=device, dtype=torch.float32,
-                              scatter=None if part is None else part.cut)
-    arrays = init_baroclinic_state_numpy(
-        _generate_metric_terms(n, 3), eta.set_hybrid_pressure_coefficients(
-            nz), GridSizing(n, nz), part=part)
-    state = DycoreState.from_numpy(arrays, device, torch.float32)
-    if device == "cuda":
-        torch.cuda.synchronize()
+    with RssPeak() as sampled:
+        def stage(name):
+            if device == "cuda":
+                torch.cuda.synchronize()
+            stages.append(dict(stage=name, rss=host_rss_bytes(),
+                               peak=sampled.peak))
+
+        grid_arrays = grid_arrays_numpy(n, nz, part=part)
+        stage("grid terms")
+        grid = GridData.from_numpy(grid_arrays, device, torch.float32)
+        stage("grid on the device")
+        arrays = init_baroclinic_state_numpy(
+            raw_metric_terms(n, 3, part),
+            eta.set_hybrid_pressure_coefficients(nz), GridSizing(n, nz),
+            part=part)
+        stage("state arrays")
+        state = DycoreState.from_numpy(arrays, device, torch.float32)
+        stage("state on the device")
     seconds = time.perf_counter() - t0
     report = dict(
-        which=which, seconds=seconds, host_peak_bytes=host_peak_bytes(),
-        host_base_bytes=base,
+        which=which, seconds=seconds, host_peak_bytes=sampled.peak,
+        host_base_bytes=base, stages=stages, maxrss=host_peak_bytes(),
+        start_maxrss=start_maxrss,
         device_bytes=(torch.cuda.memory_allocated() if device == "cuda"
                       else None),
         state_bytes=sum(getattr(state, f.name).nbytes
                         for f in dataclasses.fields(state)),
         held=list(state.u.shape[:3]),
-        host_state_bytes=sum(a.nbytes for a in arrays.values()))
+        host_state_bytes=sum(a.nbytes for a in arrays.values()),
+        host_grid_bytes=sum(np.asarray(v).nbytes for leaves in
+                            grid_arrays.values() for v in leaves.values()))
     del grid, state
+    leaves = _grid_leaves(grid_arrays)
     if part is None:
         for rank in LOCAL_RANKS:
             np.savez(os.path.join(out, f"cut{rank}.npz"),
                      **{k: partition.scatter(v, rank)
-                        for k, v in arrays.items()})
+                        for k, v in arrays.items()},
+                     **{f"grid/{k}": v for k, v in _cut_grid_leaves(
+                         leaves, partition, rank).items()})
     else:
-        np.savez(os.path.join(out, f"rank{which}.npz"), **arrays)
+        np.savez(os.path.join(out, f"rank{which}.npz"), **arrays,
+                 **{f"grid/{k}": v for k, v in leaves.items()})
     with open(os.path.join(out, f"{which}.json"), "w") as f:
         json.dump(report, f)
+
+
+def same_bits(a, b) -> bool:
+    """NaN where the other is NaN, elsewhere equal bit for bit (for
+    floats; other arrays equal)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype.kind != "f":
+        return np.array_equal(a, b)
+    nan = np.isnan(a)
+    bits = np.dtype(f"i{a.dtype.itemsize}")
+    return bool(np.array_equal(nan, np.isnan(b)) and np.array_equal(
+        a[~nan].view(bits), b[~nan].view(bits)))
 
 
 def host_rss_bytes() -> int:
@@ -2620,6 +2701,32 @@ def host_rss_bytes() -> int:
             if line.startswith("VmRSS:"):
                 return int(line.split()[1]) * 1024
     raise RuntimeError("/proc/self/status has no VmRSS")
+
+
+class RssPeak:
+    """The largest resident size of this process (/proc/self/status
+    VmRSS) while the block runs, read every millisecond by a thread.
+    `ru_maxrss` starts from the resident size of the parent a process was
+    forked from (Linux carries it across exec), and the card's host has
+    no VmHWM, nor lets a process reset it."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = host_rss_bytes(), threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.001):
+                self.peak = max(self.peak, host_rss_bytes())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss_bytes())
 
 
 def start_local_builds(out: str) -> list:
@@ -2643,12 +2750,12 @@ def start_local_builds(out: str) -> list:
 
 
 def check_local_builds(out: str, procs: list, card: str) -> tuple:
-    """16.1: wait for the processes; every rank's float64 host arrays equal
-    the whole cube's cut to it, every leaf, NaN for NaN; the host memory
-    each rank's build adds (its peak over what the process held before,
-    the libraries' shared pages) below a fifth of what the whole cube's
-    adds.  Returns (the largest base, the largest rank addition), in
-    bytes."""
+    """16.1: wait for the processes; every rank's float64 host arrays, of
+    its grid and of its state, equal the whole cube's cut to it, every
+    leaf, bit for bit (NaN for NaN); the host memory each rank's build
+    adds (its peak over what the process held before, the libraries'
+    shared pages) at most LOCAL_SHARE of what the whole cube's adds.
+    Returns (the largest base, the largest rank addition), in bytes."""
     for which, proc in procs:
         if proc.wait(timeout=600) != 0:
             with open(os.path.join(out, f"{which}.log")) as f:
@@ -2664,11 +2771,17 @@ def check_local_builds(out: str, procs: list, card: str) -> tuple:
     whole = reports.pop("whole")
     _log16(f"16.1 {C384_YAML} at n=384, [6, 4, 4] (hosts [6, 1, 1]): the "
            f"whole cube as one process builds it, grid and state float32 on "
-           f"the card: {whole['seconds']:.1f} s, host peak "
+           f"the card: {whole['seconds']:.1f} s, host peak (resident "
+           f"size sampled every ms) "
            f"{whole['host_peak_bytes']} bytes ({whole['added']} over the "
            f"{whole['host_base_bytes']} the process held before), device "
            f"{whole['device_bytes']} bytes (state {whole['state_bytes']}; "
-           f"float64 host state {whole['host_state_bytes']}) on {card}")
+           f"float64 host state {whole['host_state_bytes']}, grid "
+           f"{whole['host_grid_bytes']}; ru_maxrss {whole['maxrss']}, "
+           f"{whole['start_maxrss']} at the process's start) on {card}")
+    _log16("16.1 whole cube: host bytes after each stage (resident, "
+           "peak): " + "; ".join(f"{s['stage']} {s['rss']}, {s['peak']}"
+                                 for s in whole["stages"]))
     for rank in LOCAL_RANKS:
         r = reports[str(rank)]
         with np.load(os.path.join(out, f"rank{rank}.npz")) as got, \
@@ -2676,27 +2789,216 @@ def check_local_builds(out: str, procs: list, card: str) -> tuple:
             if sorted(got.files) != sorted(want.files):
                 raise AssertionError(f"16.1 rank {rank}: fields "
                                      f"{got.files} against {want.files}")
-            differ = [k for k in got.files if not np.array_equal(
-                got[k], want[k], equal_nan=True)]
+            differ = [k for k in got.files
+                      if not same_bits(got[k], want[k])]
+            grid = sum(k.startswith("grid/") for k in got.files)
         share = r["added"] / whole["added"]
         _log16(f"16.1 rank {rank} built alone, block {r['held']}: "
-               f"{r['seconds']:.1f} s, host peak {r['host_peak_bytes']} "
+               f"{r['seconds']:.1f} s, host peak (sampled) "
+               f"{r['host_peak_bytes']} "
                f"bytes ({r['added']} over the {r['host_base_bytes']} held "
-               f"before: {share:.3f} of the whole cube's), device "
+               f"before: {share:.4f} of the whole cube's), device "
                f"{r['device_bytes']} bytes (state {r['state_bytes']}; "
-               f"float64 host state {r['host_state_bytes']}); "
-               + ("every float64 leaf identical to the whole cube's cut "
-                  "(required)" if not differ else f"{differ} differ"))
+               f"float64 host state {r['host_state_bytes']}, grid "
+               f"{r['host_grid_bytes']}; ru_maxrss {r['maxrss']}, "
+               f"{r['start_maxrss']} at the process's start); "
+               + (f"every float64 leaf, {grid} of the grid's (its four "
+                  "area extremes among them), identical to the whole "
+                  "cube's cut bit for bit (required)" if not differ
+                  else f"{differ} differ"))
+        _log16(f"16.1 rank {rank} host bytes after each stage (resident, "
+               f"peak): " + "; ".join(
+                   f"{s['stage']} {s['rss']}, {s['peak']}"
+                   for s in r["stages"]))
         if differ:
             raise AssertionError(f"16.1 rank {rank}: {differ} differ from "
                                  "the whole cube's cut")
-        if not share < 0.2:
+        if not share <= LOCAL_SHARE:
             raise AssertionError(f"16.1 rank {rank}: the host memory its "
-                                 f"build adds, {r['added']}, is not below a "
-                                 "fifth of the whole cube's "
+                                 f"build adds, {r['added']}, is above "
+                                 f"{LOCAL_SHARE} of the whole cube's "
                                  f"{whole['added']}")
     return (max(r["host_base_bytes"] for r in reports.values()),
             max(r["added"] for r in reports.values()))
+
+
+# 16.3: rank 0's writes of c384_multihost_emulator.yaml's [6, 4, 4] ranks
+# at n = 384, one field at a time: a float32 restart of the state and one
+# diagnostics record of the yaml's `names`, in one process, every other
+# rank's block made from the seed
+ROOT_WRITES = ("restart", "diagnostics")
+ROOT_WRITE_SEED = 16
+# the most a write may add to its process's host memory, in whole-cube
+# fields of the largest size (PERF.md section 2)
+ROOT_WRITE_FIELDS = 3.0
+
+
+def seeded_block(seed: int, name: str, rank: int, shape) -> np.ndarray:
+    """Rank `rank`'s float32 block of field `name`, made from `seed`."""
+    import zlib
+
+    key = [seed, zlib.crc32(name.encode()), rank]
+    return np.random.default_rng(key).random(tuple(shape),
+                                             dtype=np.float32)
+
+
+class SeededRanks:
+    """A stand-in for the process group of a layout's ranks as rank 0
+    sees it: `gather_blocks` yields rank 0's own block and then each other
+    rank's made from the seed, one at a time, for the fields `names` in
+    the order they come."""
+
+    rank = 0
+
+    def __init__(self, partition, seed: int, names):
+        self.partition, self.seed = partition, seed
+        self.size, self.names = partition.size, list(names)
+
+    def gather_blocks(self, block, shapes, root=0):
+        name = self.names.pop(0)
+        yield block
+        for rank in range(1, self.size):
+            yield seeded_block(self.seed, name, rank, shapes[rank])
+
+
+def root_write_main(out: str, which: str, seed: str) -> None:
+    """`chip_smoke.py --root-write OUT WHICH SEED`, one process of 16.3:
+    rank 0 of c384_multihost_emulator.yaml's mesh writes a float32 restart
+    (WHICH `restart`) or one diagnostics record of the yaml's names in its
+    format (`diagnostics`) through the port's writers, with every other
+    rank's block of each field made from SEED as the stand-in for the
+    gather delivers it; then reads the files back against the blocks and
+    deletes them.  Writes OUT/root_<WHICH>.json: seconds, the host bytes
+    the write added over what the process held before it, the largest
+    whole-cube field's bytes, the bytes written."""
+    import datetime
+
+    from pace_torch.driver import DriverConfig
+    from pace_torch.driver.diagnostics import DiagnosticsConfig
+    from pace_torch.driver.performance import host_peak_bytes
+    from pace_torch.driver.restart import write_restart
+    from pace_torch.models.fv3.state import DycoreState, zeros_numpy
+    from pace_torch.parallel.partition import Partition
+    from pace_torch.utils.gridtools import GridSizing
+    from pace_torch.utils.zarrlite import read_zarr_array
+
+    seed = int(seed)
+    config = DriverConfig.from_yaml(os.path.join(EXAMPLES, C384_YAML))
+    n, nz = config.nx_tile, config.nz
+    sizing = GridSizing(n, nz)
+    partition = Partition(config.mesh.layout, n,
+                          dcn_mesh_shape=config.mesh.dcn_mesh_shape)
+    part = partition.part(0)
+    state = DycoreState.from_numpy(
+        {name: seeded_block(seed, name, 0, a.shape)
+         for name, a in zeros_numpy(sizing, part).items()}, "cpu",
+        torch.float32)
+    diag = config.diagnostics_config
+    names = (list(zeros_numpy(sizing, part)) if which == "restart"
+             else list(diag.names))
+    ranks = (partition, SeededRanks(partition, seed, names))
+    path = os.path.join(out, f"root_{which}")
+    # the bytes of the largest whole-cube field written, float32
+    largest = max(4 * 6 * partition.N ** 2
+                  * int(np.prod(getattr(state, name).shape[3:]))
+                  for name in names)
+    base = host_rss_bytes()
+    before = host_peak_bytes()
+    t0 = time.perf_counter()
+    with RssPeak() as sampled:
+        if which == "restart":
+            write_restart(state, None, path, "npz", ranks)
+        else:
+            DiagnosticsConfig(path=path, output_format=diag.output_format,
+                              names=names).diagnostics_factory(
+                sizing, ranks).store(datetime.datetime(2000, 1, 1), state)
+    seconds = time.perf_counter() - t0
+    peak, maxrss_after = sampled.peak, host_peak_bytes()
+    written = sum(os.path.getsize(os.path.join(d, f))
+                  for d, _, fs in os.walk(path) for f in fs)
+    # read back: each rank's owned box of each field against its block
+    t0 = time.perf_counter()
+    h = sizing.halo
+    for name in names:
+        if which == "restart":
+            data = np.load(os.path.join(path, "dycore_state", f"{name}.npy"),
+                           mmap_mode="r")
+            lo = (0, 0)
+        else:
+            data = read_zarr_array(os.path.join(path, "state.zarr",
+                                                name))[0]
+            lo = (h, h)
+        shapes = partition.part_shapes(getattr(state, name).shape[3:])
+        for rank in range(partition.size):
+            b, lb = partition.box(rank), partition.local_box(rank)
+            i0, i1 = max(b.i0, lo[0]), min(b.i1, lo[0] + data.shape[1])
+            j0, j1 = max(b.j0, lo[1]), min(b.j1, lo[1] + data.shape[2])
+            block = seeded_block(seed, name, rank, shapes[rank])
+            want = block[:, i0 - lb.i0:i1 - lb.i0, j0 - lb.j0:j1 - lb.j0]
+            got = data[b.t0:b.t1, i0 - lo[0]:i1 - lo[0],
+                       j0 - lo[1]:j1 - lo[1]]
+            if not np.array_equal(got, want):
+                raise AssertionError(f"16.3 {which}: {name} of rank {rank} "
+                                     "differs from its block")
+        del data
+    check_s = time.perf_counter() - t0
+    import shutil
+
+    shutil.rmtree(path)
+    with open(os.path.join(out, f"root_{which}.json"), "w") as f:
+        json.dump(dict(which=which, fields=len(names), seconds=seconds,
+                       check_seconds=check_s, base=base, peak=peak,
+                       added=peak - base, maxrss_before=before,
+                       maxrss_after=maxrss_after,
+                       largest_field_bytes=largest, written_bytes=written,
+                       ranks=partition.size,
+                       layout=list(partition.layout)), f)
+
+
+def start_root_writes(out: str) -> list:
+    """16.3's processes, one a write.  Returns (which, Popen) pairs."""
+    procs = []
+    for which in ROOT_WRITES:
+        logf = open(os.path.join(out, f"root_{which}.log"), "w")
+        procs.append((which, subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--root-write", out, which, str(ROOT_WRITE_SEED)],
+            stdout=logf, stderr=subprocess.STDOUT, cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=REPO))))
+        BACKGROUND.append(procs[-1][1])
+        logf.close()
+    return procs
+
+
+def check_root_writes(out: str, procs: list, card: str) -> None:
+    """16.3: each write's files read back equal to the blocks (checked in
+    its process), and what the write added to the host at most
+    ROOT_WRITE_FIELDS whole-cube fields of the largest size."""
+    for which, proc in procs:
+        if proc.wait(timeout=900) != 0:
+            with open(os.path.join(out, f"root_{which}.log")) as f:
+                log(f.read()[-4000:])
+            raise AssertionError(f"16.3: the {which} write failed "
+                                 f"({proc.returncode})")
+        with open(os.path.join(out, f"root_{which}.json")) as f:
+            r = json.load(f)
+        fields = r["added"] / r["largest_field_bytes"]
+        _log16(f"16.3 rank 0 of {C384_YAML} at n=384, {r['ranks']} ranks "
+               f"of {r['layout']}: the {which} ({r['fields']} fields, "
+               f"{r['written_bytes']} bytes written, the other ranks' "
+               f"blocks made from seed {ROOT_WRITE_SEED}) one field at a "
+               f"time in {r['seconds']:.1f} s, read back equal to every "
+               f"rank's block in {r['check_seconds']:.1f} s; the write "
+               f"added {r['added']} host bytes over the {r['base']} held "
+               f"before ({fields:.3f} x the largest whole-cube field's "
+               f"{r['largest_field_bytes']}; resident size sampled every "
+               f"ms; ru_maxrss {r['maxrss_before']} before the write, "
+               f"{r['maxrss_after']} after) on {card}")
+        if not fields <= ROOT_WRITE_FIELDS:
+            raise AssertionError(f"16.3 {which}: the write added "
+                                 f"{r['added']} bytes, {fields:.3f} whole-"
+                                 f"cube fields (at most "
+                                 f"{ROOT_WRITE_FIELDS})")
 
 
 def local_yaml_copy(n, work, mesh=None) -> str:
@@ -2743,12 +3045,13 @@ LOCAL_OUT = os.path.join(REPO, "build", "phase16")
 
 def start_local_init() -> dict:
     """Phase 16's processes that need neither the card's attention nor
-    the host's memory for long: 16.1's builds and the one-rank run of
-    16.2's cut yaml at nx_tile LOCAL_N. `main` starts them before
-    phase 11 (a single process that waits on its launches), so that they
-    run beside phases 11 to 13."""
+    the host's memory for long: 16.1's builds, 16.3's writes and the
+    one-rank run of 16.2's cut yaml at nx_tile LOCAL_N. `main` starts
+    them before phase 11 (a single process that waits on its launches),
+    so that they run beside phases 11 to 13."""
     procs = start_local_builds(LOCAL_OUT)
     return dict(t0=time.perf_counter(), procs=procs,
+                writes=start_root_writes(LOCAL_OUT),
                 one=start_one_rank_run(LOCAL_N, LOCAL_OUT))
 
 
@@ -2764,21 +3067,25 @@ def run_local_init(card, started: dict, split_peaks=None) -> None:
     for name in os.listdir(out):
         if name.endswith(".npz"):
             os.remove(os.path.join(out, name))
-    log(f"[16] 16.1's processes started {t16 - started['t0']:.0f} s before "
-        f"phase 16; their checks took {time.perf_counter() - t16:.0f} s")
+    check_root_writes(out, started["writes"], card)
+    log(f"[16] 16.1's and 16.3's processes started "
+        f"{t16 - started['t0']:.0f} s before phase 16; their checks took "
+        f"{time.perf_counter() - t16:.0f} s")
     wait_one_rank_run(n, out, *one)
 
     layout = C384_LOCAL["mesh"]["layout"]
     ranks = int(np.prod(layout))
     # what a rank of 16.2 adds to the host over the pages every torch
-    # process shares: 15.2's ranks hold the same C96 cube's metric terms
-    # and blocks of the same size, step the same emulator and gather the
-    # state besides; without phase 15, 16.1's C384 ranks, whose whole-cube
-    # metric terms are 16 times a C96 rank's
+    # process shares: 15.2's ranks hold blocks of the same C96 cube, step
+    # the same emulator and gather the state besides; without phase 15,
+    # the one-rank run of the same cut yaml, which holds the whole cube
     if split_peaks:
         per_rank, source = max(split_peaks) - base, "15.2's C96 ranks"
     else:
-        per_rank, source = added, "16.1's C384 ranks"
+        with open(os.path.join(os.path.dirname(one[0]),
+                               "c384_emulator_perf.json")) as f:
+            per_rank = json.load(f)["ranks"][0]["host_peak_bytes"] - base
+        source = "the one-rank run of the cut yaml"
     available = host_available_bytes()
     need = base + ranks * per_rank
     summary = (f"{available} bytes available; {ranks} ranks at "
@@ -2811,8 +3118,10 @@ def run_local_init(card, started: dict, split_peaks=None) -> None:
            f"({ranks} ranks of {n // 2} x {n // 2} cells), 2 steps through "
            f"torchrun -m pace_torch.driver.run: {len(files)} files equal "
            f"to the one-rank run's; host available before "
-           f"{available} bytes; each rank's host peak {peaks} bytes (sum "
-           f"{sum(peaks)}), card peak {min(cards)}-{max(cards)} bytes (sum "
+           f"{available} bytes; rank 0's host peak {peaks[0]} bytes "
+           f"(it writes the files), the other ranks' {min(peaks[1:])}-"
+           f"{max(peaks[1:])} ({peaks[1:]}; sum of all {sum(peaks)}), "
+           f"card peak {min(cards)}-{max(cards)} bytes (sum "
            f"{sum(cards)}), initialization {min(starts):.1f}-"
            f"{max(starts):.1f} s; {ranks} ranks {t_split:.1f} s on {card}")
     log(f"[16] phase 16 took {time.perf_counter() - t16:.0f} s")
@@ -2974,6 +3283,8 @@ if __name__ == "__main__":
         split_rank_main(sys.argv[2])
     elif sys.argv[1:2] == ["--local-build"]:
         local_build_main(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--root-write"]:
+        root_write_main(*sys.argv[2:5])
     else:
         try:
             main({int(p) for p in sys.argv[2].split(",")}

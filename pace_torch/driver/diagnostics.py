@@ -7,21 +7,30 @@ npz (one file per output time), NetCDF3 time-series chunks or a Zarr v2
 store.  The files are those of the reference package.  The selected fields
 are cut to the compute domain and the column integrals taken on the
 device; each output then reads the device once (`utils/host.to_host`).
-In a multi-rank run every rank sends its tiles' arrays to rank 0, which
-writes the whole cube's: the files of a one-rank run.
+In a multi-rank run every rank sends its blocks to rank 0, which writes
+the whole cube's one field at a time (`utils/host.fields_on_root`): the
+files of a one-rank run.  The NetCDF time series alone keeps whole
+records, `time_chunk_size` of them, as the reference's monitor does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
-from typing import List, Optional
+import zipfile
+from typing import Iterable, List, Optional
 
 import numpy as np
 
 from pace_torch.models.fv3.state import FIELD_METADATA
 from pace_torch.utils.constants import GRAV
-from pace_torch.utils.host import on_root, to_host
+from pace_torch.utils.host import (
+    drain,
+    fields_on_root,
+    root_layout,
+    to_host,
+)
 
 GRID_NAMES = ("lon", "lat", "lon_agrid", "lat_agrid", "area")
 
@@ -118,6 +127,17 @@ def _grid_arrays(grid_data) -> dict:
     return to_host({name: getattr(hz, name) for name in GRID_NAMES})
 
 
+def write_npz(path: str, fields: Iterable) -> None:
+    """An uncompressed .npz of the (name, array) pairs `fields`, written
+    one member at a time as `numpy.savez` writes them."""
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as archive:
+        for name, value in fields:
+            with archive.open(name + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, np.asanyarray(value))
+            del value
+
+
 class NpzDiagnostics(Diagnostics):
     def __init__(self, config: DiagnosticsConfig, sizing=None, ranks=None):
         self.config = config
@@ -144,11 +164,12 @@ class NpzDiagnostics(Diagnostics):
                 nj = n + 1
         return arr[:, h:h + ni, h:h + nj]
 
-    def _collect(self, state) -> Optional[dict]:
-        """The configured (and derived) variables, halo-stripped, as numpy
-        arrays read from the device in one transfer (the whole cube's on
-        rank 0, None on the other ranks): each rank sends its block, and
-        rank 0 strips the gathered cube."""
+    def _fields(self, state):
+        """The configured (and derived) variables as (name, halo-stripped
+        numpy array) pairs, read from the device in one transfer: the
+        whole cube's, one at a time, on rank 0 (each rank sends its block,
+        and rank 0 strips each gathered field); nothing on the other ranks,
+        which run the generator to its end.  Returns (names, generator)."""
         fields = {}  # output name: (array, name of its metadata)
         for name in self.config.names:
             fields[name] = (getattr(state, name), name)
@@ -160,32 +181,37 @@ class NpzDiagnostics(Diagnostics):
             for name in zs.names:
                 fields[f"{name}_z{zs.level}"] = (
                     getattr(state, name)[..., zs.level], name)
-        out = on_root(to_host({key: a for key, (a, _) in fields.items()}),
-                      self.ranks)
-        if out is None:
-            return None
-        return {key: self._compute_domain(a, fields[key][1])
-                for key, a in out.items()}
+        arrays = to_host({key: a for key, (a, _) in fields.items()})
 
-    def _grid(self, grid_data) -> Optional[dict]:
-        return on_root(_grid_arrays(grid_data), self.ranks)
+        def stripped():
+            for key, a in fields_on_root(arrays, self.ranks):
+                yield key, self._compute_domain(a, fields[key][1])
+                del a  # before the next field is assembled
+
+        return list(fields), stripped()
+
+    def _grid(self, grid_data):
+        """(layout, generator) of the grid's fields, as `_fields`."""
+        arrays = _grid_arrays(grid_data)
+        return (root_layout(arrays, self.ranks),
+                fields_on_root(arrays, self.ranks))
 
     def store(self, time, state):
-        out = self._collect(state)
-        if out is None:
-            return
+        _, fields = self._fields(state)
+        if not self.root:
+            return drain(fields)
         if time is not None:
-            out["time"] = np.asarray(str(time))
-        fname = os.path.join(
-            self.config.path, f"state_{self._index:06d}.npz"
-        )
-        np.savez(fname, **out)
+            fields = itertools.chain(fields,
+                                     [("time", np.asarray(str(time)))])
+        write_npz(os.path.join(self.config.path,
+                               f"state_{self._index:06d}.npz"), fields)
         self._index += 1
 
     def store_grid(self, grid_data):
-        grid = self._grid(grid_data)
-        if grid is not None:
-            np.savez(os.path.join(self.config.path, "grid.npz"), **grid)
+        _, fields = self._grid(grid_data)
+        if not self.root:
+            return drain(fields)
+        write_npz(os.path.join(self.config.path, "grid.npz"), fields)
 
 
 def _column_integral(q, delp):
@@ -197,7 +223,8 @@ def _column_integral(q, delp):
 class NetCDFDiagnostics(NpzDiagnostics):
     """Diagnostics through the chunked NetCDF3 time-series monitor
     (reference monitor/netcdf_monitor.py:104); shares variable collection
-    (incl. derived and z-select) with the npz path."""
+    (incl. derived and z-select) with the npz path.  The monitor buffers
+    whole records, as the reference's does."""
 
     def __init__(self, config: DiagnosticsConfig, sizing=None, ranks=None):
         from pace_torch.utils.netcdf import NetCDFMonitor
@@ -206,18 +233,21 @@ class NetCDFDiagnostics(NpzDiagnostics):
         self._monitor = NetCDFMonitor(config.path) if self.root else None
 
     def store(self, time, state):
-        out = self._collect(state)
-        if out is None:
-            return
+        _, fields = self._fields(state)
+        if not self.root:
+            return drain(fields)
+        out = dict(fields)
         out["time"] = time
         self._monitor.store(out)
 
     def store_grid(self, grid_data):
         from pace_torch.utils.netcdf import write_dataset
 
-        grid = self._grid(grid_data)
-        if grid is not None:
-            write_dataset(os.path.join(self.config.path, "grid.nc"), grid)
+        layout, fields = self._grid(grid_data)
+        if not self.root:
+            return drain(fields)
+        write_dataset(os.path.join(self.config.path, "grid.nc"), fields,
+                      layout=layout)
 
     def cleanup(self):
         if self._monitor is not None:
@@ -227,7 +257,8 @@ class NetCDFDiagnostics(NpzDiagnostics):
 class ZarrDiagnostics(NpzDiagnostics):
     """Diagnostics into a Zarr v2 store (dependency-free writer,
     utils/zarrlite.py; reference monitor/zarr_monitor.py:37 layout:
-    one (time, tile, x, y[, z]) array per variable)."""
+    one (time, tile, x, y[, z]) array per variable), one field at a
+    time."""
 
     def __init__(self, config: DiagnosticsConfig, sizing=None, ranks=None):
         from pace_torch.utils.zarrlite import ZarrMonitor
@@ -237,16 +268,16 @@ class ZarrDiagnostics(NpzDiagnostics):
                          if self.root else None)
 
     def store(self, time, state):
-        out = self._collect(state)
-        if out is None:
-            return
-        out["time"] = time
-        self._monitor.store(out)
+        names, fields = self._fields(state)
+        if not self.root:
+            return drain(fields)
+        self._monitor.store_fields(names, fields, time)
 
     def store_grid(self, grid_data):
         from pace_torch.utils.zarrlite import ZarrMonitor
 
-        grid = self._grid(grid_data)
-        if grid is not None:
-            ZarrMonitor(os.path.join(self.config.path, "grid.zarr")).store(
-                grid)
+        layout, fields = self._grid(grid_data)
+        if not self.root:
+            return drain(fields)
+        ZarrMonitor(os.path.join(self.config.path, "grid.zarr")).store_fields(
+            list(layout), fields, 0)

@@ -43,10 +43,7 @@ from pace_torch.driver.safety_checks import (
     register_default_checks,
 )
 from pace_torch.driver.state import DriverState
-from pace_torch.grid.generation import (
-    clear_metric_terms,
-    generate_grid_data,
-)
+from pace_torch.grid.generation import generate_grid_data
 from pace_torch.models.coupler import DycoreToPhysics, UpdateAtmosphereState
 from pace_torch.models.fv3.config import DynamicalCoreConfig
 from pace_torch.models.fv3.dynamics import DynamicalCore
@@ -230,9 +227,8 @@ class Driver:
                 logger.info("CUDA kernels: %s (built in %.1f s)",
                             info.path, info.seconds)
             sizing = GridSizing(config.nx_tile, config.nz)
-            # a rank builds its block of the grid by computing the whole
-            # cube's metric terms on the host and cutting them, and builds
-            # or reads its block of the initial state alone
+            # a rank builds its block of the grid and builds or reads its
+            # block of the initial state alone
             part, topology = None, None
             if self.partition is not None:
                 part = self.partition.part(self.rank)
@@ -242,14 +238,10 @@ class Driver:
                 config.nx_tile, config.nz, device=self.device, dtype=dtype,
                 stretch_factor=gc.stretch_factor, lon_target=gc.lon_target,
                 lat_target=gc.lat_target, eta_file=gc.eta_file,
-                scatter=None if part is None else part.cut,
+                part=part,
             )
             dycore_state = config.initialization.get_dycore_state(
                 sizing, self.device, dtype, part)
-            if part is not None:
-                # the whole cube's metric terms, cached for the grid and the
-                # initial state, are no longer needed by a rank
-                clear_metric_terms()
             self.state = DriverState(
                 dycore_state=dycore_state, grid_data=grid_data,
                 sizing=sizing, time=self.time,

@@ -92,6 +92,14 @@ class NullProfiler:
         pass
 
 
+def _rank_entry(rank: int, times: dict) -> dict:
+    """A rank's line of the report's `ranks` from its `times()`."""
+    return dict(rank=rank,
+                initialization=times["total_times"].get("initialization"),
+                host_peak_bytes=times["host_peak_bytes"],
+                device_peak_bytes=times["device_peak_bytes"])
+
+
 class PerformanceCollector:
     def __init__(self, experiment_name: str = "test", device="cuda"):
         self.experiment_name = experiment_name
@@ -135,11 +143,7 @@ class PerformanceCollector:
         totals = [r["total_times"] for r in every_rank]
         self._max_totals = {k: max(t[k] for t in totals)
                             for k in totals[0]}
-        self._ranks = [dict(rank=rank,
-                            initialization=r["total_times"].get(
-                                "initialization"),
-                            host_peak_bytes=r["host_peak_bytes"],
-                            device_peak_bytes=r["device_peak_bytes"])
+        self._ranks = [_rank_entry(rank, r)
                        for rank, r in enumerate(every_rank)]
 
     def sypd(self, dt_atmos: float) -> float:
@@ -161,8 +165,8 @@ class PerformanceCollector:
             times_per_step=self.times_per_step,
             total_times=self._max_totals or self.total_timer.times,
         )
-        if self._ranks is not None:
-            report["ranks"] = self._ranks
+        # each rank's start and peaks: of one rank, its own
+        report["ranks"] = self._ranks or [_rank_entry(0, self.times())]
         fname = f"{path}/{self.experiment_name}_perf.json"
         with open(fname, "w") as f:
             json.dump(report, f, indent=2)

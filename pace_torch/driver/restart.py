@@ -3,13 +3,14 @@
 Port of `pace_tpu.driver.restart` (reference RestartConfig / Restart,
 driver/pace/driver/driver.py:198-240, and util restart IO).  `format: npz`
 writes one standard `.npy` file per field under `dycore_state/` through
-the threaded native writer (`_native/fastpack`, built with g++ at first
-use; where it cannot be built the write raises), the layout the reference
-package's writer produces; `format: netcdf` writes `dycore_state.nc`.
+the native writer (`_native/fastpack`, built with g++ at first use; where
+it cannot be built the write raises), the layout the reference package's
+writer produces; `format: netcdf` writes `dycore_state.nc`.
 `load_restart_arrays` reads either, and the single `dycore_state.npz` the
 reference package falls back to.  In a multi-rank run rank 0 writes the
-whole cube's restart from every rank's blocks; each rank reads its own
-block back (`RestartInit`).
+whole cube's restart from every rank's blocks, one field at a time
+(`utils/host.fields_on_root`); each rank reads its own block back
+(`RestartInit`).
 """
 
 from __future__ import annotations
@@ -23,7 +24,12 @@ from typing import Optional
 
 import numpy as np
 
-from pace_torch.utils.host import on_root, to_host
+from pace_torch.utils.host import (
+    drain,
+    fields_on_root,
+    root_layout,
+    to_host,
+)
 
 
 @dataclasses.dataclass
@@ -63,25 +69,32 @@ def write_restart(dycore_state, time, path: str, format: str = "npz",
                   ranks=None):
     """Write the restart of `dycore_state`; with `ranks` ((Partition,
     Comm) of a multi-rank run) every rank calls this and rank 0 writes
-    the whole cube's."""
-    arrays = on_root(to_host({
+    the whole cube's, one field at a time."""
+    arrays = to_host({
         f.name: getattr(dycore_state, f.name)
         for f in dataclasses.fields(dycore_state)
-    }), ranks)
-    if arrays is None:
+    })
+    fields = fields_on_root(arrays, ranks)
+    if ranks is not None and ranks[1].rank != 0:
+        drain(fields)
         return
     os.makedirs(path, exist_ok=True)
     if format == "netcdf":
         from pace_torch.utils.netcdf import write_dataset
 
         write_dataset(
-            os.path.join(path, "dycore_state.nc"), arrays,
+            os.path.join(path, "dycore_state.nc"), fields,
             attrs={"time": str(time) if time else ""},
+            layout=root_layout(arrays, ranks),
         )
     else:
-        from pace_torch._native.fastpack import write_state_npys
+        from pace_torch._native.fastpack import write_npy
 
-        write_state_npys(os.path.join(path, "dycore_state"), arrays)
+        directory = os.path.join(path, "dycore_state")
+        os.makedirs(directory, exist_ok=True)
+        for name, array in fields:
+            write_npy(os.path.join(directory, name + ".npy"), array)
+            del array
     with open(os.path.join(path, "time.json"), "w") as f:
         json.dump({"time": str(time) if time else None}, f)
 

@@ -8,7 +8,10 @@ arithmetic is that of `pace_tpu.grid.generation` line for line, so the two
 packages build bit-identical metrics.
 
 Output is `GridData`, a bundle of torch tensors on an explicit device and
-dtype, consumed by the dycore.
+dtype, consumed by the dycore.  A rank of a multi-rank run builds only its
+block (`generate_grid_data(..., part=...)`): the same terms evaluated at
+the block's points and at the points its halo is filled from
+(grid/points.py), never the whole cube's.
 """
 
 from __future__ import annotations
@@ -210,6 +213,14 @@ _BUNDLES = (
     ("vertical", VerticalGridData),
 )
 
+# the terms of each horizontal bundle that are (6, N, N[, ...]) point
+# fields: every array leaf but the edge tables
+POINT_TERMS = {
+    name: [f.name for f in dataclasses.fields(bcls)
+           if f.type not in ("float", "int") and f.name not in EDGE_TABLE_AXIS]
+    for name, bcls in _BUNDLES[:3]
+}
+
 
 @dataclasses.dataclass
 class GridData:
@@ -269,39 +280,77 @@ def _conv(x):
     return np.clip(x, -1.0e30, 1.0e30)
 
 
-def grid_arrays_numpy(n: int, nz: int, halo: int = N_HALO_DEFAULT,
-                      stretch_factor: float = None,
-                      lon_target: float = 350.0, lat_target: float = -90.0,
-                      eta_file: str = None) -> dict:
-    """The nested numpy leaves `GridData.from_numpy` takes, float64."""
-    raw = _generate_metric_terms(
-        n, halo, stretch_factor=stretch_factor,
-        lon_target=lon_target, lat_target=lat_target,
-    )
-    vertical = eta.set_hybrid_pressure_coefficients(nz, eta_file=eta_file)
-    out = {
-        "horizontal": {k: _conv(v) for k, v in raw["horizontal"].items()},
-        "angle": {k: _conv(v) for k, v in raw["angle"].items()},
+def _grid_arrays(terms: dict, vertical, extremes: dict) -> dict:
+    """The nested numpy leaves `GridData.from_numpy` takes, from the raw
+    float64 terms of each bundle."""
+    return {
+        "horizontal": {k: _conv(v) for k, v in terms["horizontal"].items()},
+        "angle": {k: _conv(v) for k, v in terms["angle"].items()},
         "damping": {
-            **{k: _conv(raw["damping"][k])
+            **{k: _conv(terms["damping"][k])
                for k in ("divg_u", "divg_v", "del6_u", "del6_v")},
-            **{k: float(raw["damping"][k])
+            **{k: float(extremes[k])
                for k in ("da_min", "da_min_c", "da_max", "da_max_c")},
         },
         "vertical": dict(ak=vertical.ak, bk=vertical.bk, ks=vertical.ks,
                          ptop=vertical.ptop, p_ref=1.0e5),
     }
-    return out
+
+
+def _part_terms(part, stretch_factor, lon_target, lat_target) -> tuple:
+    """The raw terms of the block `part` holds (edge tables cut as
+    `part.cut` cuts them) and the whole cube's four area extremes,
+    evaluated at the block's points (grid/points.py)."""
+    from pace_torch.grid import points
+
+    n, h, N = part.n, part.h, part.N
+    metrics = points.PointMetrics(n, h, stretch_factor, lon_target,
+                                  lat_target)
+    t, i, j = part.indices()
+    terms = {bundle: {name: metrics.term(name, t, i, j) for name in names}
+             for bundle, names in POINT_TERMS.items()}
+    tiles = np.arange(part.box.t0, part.box.t1)
+    tt, kk = np.meshgrid(tiles, np.arange(N), indexing="ij")
+    for name in EDGE_TABLE_AXIS:
+        table = np.zeros((6, N))
+        table[tiles] = metrics.edge(name, tt, kk)
+        terms["horizontal"][name] = part.cut(table,
+                                             axis=EDGE_TABLE_AXIS[name])
+    extremes = points.area_extremes(n, h, *_grid_key(
+        stretch_factor, lon_target, lat_target))
+    return terms, extremes
+
+
+def grid_arrays_numpy(n: int, nz: int, halo: int = N_HALO_DEFAULT,
+                      stretch_factor: float = None,
+                      lon_target: float = 350.0, lat_target: float = -90.0,
+                      eta_file: str = None, part=None) -> dict:
+    """The nested numpy leaves `GridData.from_numpy` takes, float64: of
+    the whole cube, or of the block `part` (`Partition.part(rank)`) holds,
+    built on that block alone and equal to the whole cube's cut to it bit
+    for bit (the four area extremes are the whole cube's)."""
+    vertical = eta.set_hybrid_pressure_coefficients(nz, eta_file=eta_file)
+    if part is not None and not part.is_whole:
+        terms, extremes = _part_terms(part, stretch_factor, lon_target,
+                                      lat_target)
+        return _grid_arrays(terms, vertical, extremes)
+    raw = _generate_metric_terms(
+        n, halo, stretch_factor=stretch_factor,
+        lon_target=lon_target, lat_target=lat_target,
+    )
+    return _grid_arrays(raw, vertical, raw["damping"])
 
 
 def generate_grid_data(n: int, nz: int, halo: int = N_HALO_DEFAULT, *,
                        device="cuda", dtype=torch.float32,
                        stretch_factor: float = None,
                        lon_target: float = 350.0, lat_target: float = -90.0,
-                       eta_file: str = None, scatter=None) -> GridData:
+                       eta_file: str = None, part=None) -> GridData:
     """Generate the full metric-term bundle for a C`n` grid with `nz`
-    levels (one rank's part where `scatter` is given: the metrics are
-    computed for the whole cube on the host and cut).
+    levels.  With `part` (`Partition.part(rank)`) only that rank's block
+    is built: its metric terms are evaluated at the block's points and at
+    the points its halo is filled from (grid/points.py), bit for bit the
+    whole cube's grid cut to it (`GridData.scattered`).
 
     stretch_factor/lon_target/lat_target apply the Schmidt stretched-grid
     transformation (grid/stretch_transformation.py) to the gnomonic grid
@@ -311,26 +360,39 @@ def generate_grid_data(n: int, nz: int, halo: int = N_HALO_DEFAULT, *,
     return GridData.from_numpy(
         grid_arrays_numpy(n, nz, halo, stretch_factor=stretch_factor,
                           lon_target=lon_target, lat_target=lat_target,
-                          eta_file=eta_file),
-        device, dtype, scatter)
+                          eta_file=eta_file, part=part),
+        device, dtype)
+
+
+def _grid_key(stretch_factor, lon_target, lat_target) -> tuple:
+    """(stretch_factor, lon_target, lat_target) of a distinct grid: an
+    unstretched grid ignores the targets."""
+    if stretch_factor is None or stretch_factor == 1.0:
+        return None, 350.0, -90.0
+    return stretch_factor, float(lon_target), float(lat_target)
 
 
 def _generate_metric_terms(
     n: int, halo: int, stretch_factor: float = None,
     lon_target: float = 350.0, lat_target: float = -90.0,
 ):
-    """The raw float64 metric terms, computed once per distinct grid (an
-    unstretched grid ignores the targets)."""
-    if stretch_factor is None or stretch_factor == 1.0:
-        stretch_factor, lon_target, lat_target = None, 350.0, -90.0
-    return _metric_terms(n, halo, stretch_factor, float(lon_target),
-                         float(lat_target))
+    """The raw float64 metric terms of the whole cube, computed once per
+    distinct grid."""
+    return _metric_terms(n, halo, *_grid_key(stretch_factor, lon_target,
+                                             lat_target))
 
 
-def clear_metric_terms() -> None:
-    """Drop the whole-cube metric terms cached for the grids built so far
-    (a rank process keeps only its block of them)."""
-    _metric_terms.cache_clear()
+def raw_metric_terms(n: int, halo: int, part=None):
+    """The raw float64 metric terms (unstretched) the initial states read,
+    in the nested layout of `_metric_terms`' result: the whole cube's
+    arrays, or for a rank's `part` a view that evaluates each term at the
+    points it is indexed with (`points.PointView`), so that a rank reads
+    the terms at its block and its halo's sources alone."""
+    if part is None or part.is_whole:
+        return _generate_metric_terms(n, halo)
+    from pace_torch.grid import points
+
+    return points.PointView(points.PointMetrics(n, halo))
 
 
 @functools.lru_cache(maxsize=4)

@@ -24,6 +24,8 @@ This module is init-time-only (numpy, float64); nothing here is jitted.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 PI = np.pi
@@ -155,26 +157,52 @@ def _to_left_handed(xyz):
     return out
 
 
+def _every_corner(n: int):
+    return np.meshgrid(np.arange(6), np.arange(n + 1), np.arange(n + 1),
+                       indexing="ij")
+
+
 def cube_corners(n: int) -> np.ndarray:
     """Corner xyz for all 6 tiles, shape (6, n+1, n+1, 3), right-handed frame.
     """
-    base = _to_left_handed(tile1_corners(n))
-    tiles = np.empty((6, n + 1, n + 1, 3))
-    for t, rot in enumerate(_TILE_ROTATIONS):
-        rotated = base @ rot.T
-        tiles[t] = _to_left_handed(rotated)  # back to right-handed
-    return tiles
+    return corner_xyz_at(n, *_every_corner(n))
 
 
 def cube_corners_lonlat(n: int):
     """(lon, lat) corner arrays, each shape (6, n+1, n+1)."""
-    xyz = cube_corners(n)
-    lon, lat = xyz_to_lonlat(xyz)
-    # exact pole fixes (tile 3 center = north pole, tile 6 center = south pole)
+    return corner_lonlat_at(n, *_every_corner(n))
+
+
+@functools.lru_cache(maxsize=2)
+def _tile1_left_handed(n: int) -> np.ndarray:
+    return _to_left_handed(tile1_corners(n))
+
+
+def corner_xyz_at(n: int, t, a, b) -> np.ndarray:
+    """Corner xyz (right-handed frame) of the corners (t, a, b) (int
+    arrays of one shape) alone: tile 1's corners there, rotated to tile t
+    (exactly: the rotations are signed permutations)."""
+    t, a, b = np.broadcast_arrays(t, a, b)
+    base = _tile1_left_handed(n)[a, b]
+    out = np.empty(base.shape)
+    for tile in np.unique(t):
+        m = t == tile
+        out[m] = _to_left_handed(base[m] @ _TILE_ROTATIONS[tile].T)
+    return out
+
+
+def corner_lonlat_at(n: int, t, a, b):
+    """(lon, lat) of the corners (t, a, b) alone."""
+    t, a, b = np.broadcast_arrays(t, a, b)
+    lon, lat = xyz_to_lonlat(corner_xyz_at(n, t, a, b))
     if n % 2 == 0:
+        # exact poles: tile 3's center is the north pole, tile 6's the
+        # south pole
         m = n // 2
-        lon[2, m, m], lat[2, m, m] = 0.0, 0.5 * PI
-        lon[5, m, m], lat[5, m, m] = 0.0, -0.5 * PI
+        centre = (a == m) & (b == m)
+        lon = np.where(centre & ((t == 2) | (t == 5)), 0.0, lon)
+        lat = np.where(centre & (t == 2), 0.5 * PI, lat)
+        lat = np.where(centre & (t == 5), -0.5 * PI, lat)
     return lon, lat
 
 

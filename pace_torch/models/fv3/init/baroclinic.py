@@ -143,7 +143,9 @@ def init_baroclinic_state_numpy(
     of the whole cube, or of the block `part` (`Partition.part(rank)`)
     holds, equal to the whole cube's cut to it.  The block's halo points
     of u, v and phis take the value the whole cube's halo gather gives
-    them: the fields evaluated at the gather's source points."""
+    them: the fields evaluated at the gather's source points.
+    `raw_metrics` are the whole cube's terms or a rank's view of them
+    (`grid.generation.raw_metric_terms`)."""
     n, h = sizing.n, sizing.halo
     part = part if part is not None else RankPart.whole(n, h)
     ak = np.asarray(vertical.ak)
@@ -240,11 +242,12 @@ def init_baroclinic_state(
 ):
     """Build a DycoreState with the J&W baroclinic wave: of the whole cube,
     or of one rank's block (`part`, `Partition.part(rank)`), which is all
-    that is built."""
+    that is built, from the metric terms at its points and its halo's
+    sources alone."""
     from pace_torch.grid import eta as eta_mod
-    from pace_torch.grid.generation import _generate_metric_terms
+    from pace_torch.grid.generation import raw_metric_terms
 
-    raw = _generate_metric_terms(sizing.n, sizing.halo)
+    raw = raw_metric_terms(sizing.n, sizing.halo, part)
     vertical = eta_mod.set_hybrid_pressure_coefficients(sizing.nz)
     arrays = init_baroclinic_state_numpy(
         raw, vertical, sizing, adiabatic, hydrostatic, moist_phys, part

@@ -158,7 +158,8 @@ def init_tc_state_numpy(raw_metrics: dict, sizing: GridSizing, ak, bk,
                         part: Optional[RankPart] = None):
     """Returns a dict of float64 numpy arrays for every DycoreState field,
     of the whole cube or of the block `part` (`Partition.part(rank)`)
-    holds; `raw_metrics` are `grid.generation._generate_metric_terms`'s.
+    holds; `raw_metrics` are the whole cube's metric terms or a rank's view
+    of them (`grid.generation.raw_metric_terms`).
     Every point takes its value from the metrics at itself and its i + 1
     and j + 1 neighbours (no halo update), so a block is the whole cube's
     cut."""
@@ -174,7 +175,6 @@ def init_tc_state_numpy(raw_metrics: dict, sizing: GridSizing, ak, bk,
     calc = _calc()
     hz = raw_metrics["horizontal"]
     lon, lat = hz["lon"], hz["lat"]
-    dx, dy = hz["dx"][t], hz["dy"][t]
     dxa, dya = hz["dxa"][t, ib, jb], hz["dya"][t, ib, jb]
     lon_a = np.nan_to_num(hz["lon_agrid"][t, ib, jb], nan=0.0)
     lat_a = np.nan_to_num(hz["lat_agrid"][t, ib, jb], nan=0.0)
@@ -241,15 +241,18 @@ def init_tc_state_numpy(raw_metrics: dict, sizing: GridSizing, ak, bk,
     ua = np.zeros(u.shape[:2] + (b.j1 - b.j0, nz))
     va = np.zeros((b.t1 - b.t0, b.i1 - b.i0) + v.shape[2:])
     ju, iv = min(b.j1, N - 1) - b.j0, min(b.i1, N - 1) - b.i0
+    # dx on the block's lines j and j + 1, dy on its lines i and i + 1
+    dx = hz["dx"][t, ib, slice(b.j0, b.j0 + ju + 1)]
+    dy = hz["dy"][t, slice(b.i0, b.i0 + iv + 1), jb]
     # padding cells divide by zero/NaN geometry; nan_to_num below zeroes them
     with np.errstate(invalid="ignore", divide="ignore"):
         ua[:, :, :ju] = 0.5 * (
-            u[:, :, :ju] * dx[:, ib, b.j0:b.j0 + ju, None]
-            + u[:, :, 1:ju + 1] * dx[:, ib, b.j0 + 1:b.j0 + ju + 1, None]
+            u[:, :, :ju] * dx[:, :, :ju, None]
+            + u[:, :, 1:ju + 1] * dx[:, :, 1:ju + 1, None]
         ) / dxa[:, :, :ju, None]
         va[:, :iv] = 0.5 * (
-            v[:, :iv] * dy[:, b.i0:b.i0 + iv, jb, None]
-            + v[:, 1:iv + 1] * dy[:, b.i0 + 1:b.i0 + iv + 1, jb, None]
+            v[:, :iv] * dy[:, :iv, :, None]
+            + v[:, 1:iv + 1] * dy[:, 1:iv + 1, :, None]
         ) / dya[:, :iv, :, None]
 
     for name, val in (
@@ -274,9 +277,9 @@ def init_tc_state(sizing: GridSizing, ak=None, bk=None, *, device="cuda",
     provided (like the reference, which accepts any vertical grid): the
     SHiELD TC 79-level table is the default; other level counts fall back
     to the standard hybrid tables or explicit ak/bk."""
-    from pace_torch.grid.generation import _generate_metric_terms
+    from pace_torch.grid.generation import raw_metric_terms
 
     ak, bk = tc_coefficients(sizing.nz, ak, bk)
-    raw = _generate_metric_terms(sizing.n, sizing.halo)
+    raw = raw_metric_terms(sizing.n, sizing.halo, part)
     arrays = init_tc_state_numpy(raw, sizing, ak, bk, part)
     return state_mod.DycoreState.from_numpy(arrays, device, dtype)

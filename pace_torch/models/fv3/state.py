@@ -135,6 +135,15 @@ class DycoreState:
             for name in FIELD_METADATA
         })
 
+    def replace(self, **kwargs) -> "DycoreState":
+        """A copy with the fields named in `kwargs` replaced (the others
+        are the same tensors)."""
+        return dataclasses.replace(self, **kwargs)
+
+    def tracers(self, names=TRACER_NAMES) -> Dict[str, torch.Tensor]:
+        """{name: field} of the tracers `names`, in their order."""
+        return {name: getattr(self, name) for name in names}
+
     @property
     def device(self) -> torch.device:
         return self.u.device

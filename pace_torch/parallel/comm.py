@@ -25,8 +25,9 @@ from __future__ import annotations
 import logging
 import os
 from datetime import timedelta
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -167,6 +168,31 @@ class Comm:
         out = [None] * self.size if self.rank == root else None
         dist.gather_object(obj, out, dst=root, group=self.group)
         return out
+
+    def gather_blocks(self, block: np.ndarray, shapes: Sequence[tuple],
+                      root: int = 0) -> Iterator[np.ndarray]:
+        """Every rank's numpy `block` of one field on `root`, one at a
+        time in rank order: a generator that there yields each block
+        (`shapes[r]` is rank r's; all share `block`'s dtype), receiving a
+        rank's only after the one before was taken, and elsewhere sends
+        `block` and yields nothing.  Every rank runs it to its end.  The
+        blocks travel as tensors on the device under NCCL, on the host
+        under gloo."""
+        device = self.device if self.backend == "nccl" else torch.device(
+            "cpu")
+        data = torch.from_numpy(np.ascontiguousarray(block))
+        if self.rank != root:
+            dist.send(data.to(device), root, group=self.group)
+            return
+        for rank in range(self.size):
+            if rank == root:
+                yield block
+                continue
+            buf = torch.empty(tuple(shapes[rank]), dtype=data.dtype,
+                              device=device)
+            dist.recv(buf, rank, group=self.group)
+            yield buf.cpu().numpy()
+            del buf
 
     def all_gather(self, obj) -> list:
         out = [None] * self.size

@@ -24,17 +24,17 @@ each host holds a contiguous run of ranks, a block of shape
 `layout / dcn_mesh_shape` of the mesh, as `torchrun` numbers one node's
 processes together.
 
-`Partition.part(rank)` (`RankPart`) is what the initial-state builders and
-the restart readers read to build a rank's block alone: the held block,
-which of its points are compute points of their tile, and the source of
-each held point in the topology's halo gather.  The whole cube is the one
-part of layout (1, 1, 1).
+`Partition.part(rank)` (`RankPart`) is what the grid builder, the
+initial-state builders and the restart readers read to build a rank's
+block alone: the held block, which of its points are compute points of
+their tile, and the source of each held point in the topology's halo
+gather.  The whole cube is the one part of layout (1, 1, 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -211,27 +211,33 @@ class Partition:
         argument of the initial-state builders."""
         return RankPart(self, rank)
 
-    def gather(self, parts: Sequence):
-        """The global array from every rank's held part (in rank order):
-        under whole tiles the parts (of any trailing shape, such as a
-        compute-domain cut) joined along the tile axis, rank order being
-        tile order; else each rank's owned box written into a (6, N, N,
-        ...) array."""
-        first = parts[0]
-        if self.whole_tiles:
-            if isinstance(first, torch.Tensor):
-                return torch.cat(list(parts), 0)
-            return np.concatenate([np.asarray(p) for p in parts], 0)
-        shape = (6, self.N, self.N) + tuple(first.shape[3:])
-        if isinstance(first, torch.Tensor):
-            out = first.new_empty(shape)
-        else:
-            out = np.empty(shape, dtype=np.asarray(first).dtype)
+    def gather(self, parts: Iterable):
+        """The global array from every rank's held part (in rank order),
+        taken one part at a time: under whole tiles the parts (of any
+        trailing shape, such as a compute-domain cut) placed along the
+        tile axis at their ranks' tiles; else each rank's owned box
+        written into a (6, N, N, ...) array."""
+        out = None
         for rank, part in enumerate(parts):
-            b, lb = self.box(rank), self.local_box(rank)
+            if out is None:
+                shape = ((6,) + tuple(part.shape[1:]) if self.whole_tiles
+                         else (6, self.N, self.N) + tuple(part.shape[3:]))
+                out = (part.new_empty(shape) if isinstance(part, torch.Tensor)
+                       else np.empty(shape, dtype=np.asarray(part).dtype))
+            b = self.box(rank)
+            if self.whole_tiles:
+                out[b.t0:b.t1] = part
+                continue
+            lb = self.local_box(rank)
             out[b.index] = part[:, b.i0 - lb.i0:b.i1 - lb.i0,
                                 b.j0 - lb.j0:b.j1 - lb.j0]
         return out
+
+    def part_shapes(self, trailing: tuple = ()) -> list:
+        """The shape of each rank's held part (rank order) of a field with
+        `trailing` dimensions after (tile, i, j)."""
+        return [self.local_box(rank).shape + tuple(trailing)
+                for rank in range(self.size)]
 
 
 class RankPart:
@@ -239,9 +245,12 @@ class RankPart:
     padded storage (6, N, N), which held points are compute points of their
     tile (points in another rank's box included), and for each held point
     the source (tile, i, j) that the topology's halo gather reads (for a
-    vector component also the source component and sign).  The initial
-    state is built from these on the block alone; the builders take the
-    whole cube as `RankPart.whole`."""
+    vector component also the source component and sign), computed for the
+    held points alone.  The grid (`grid.generation.generate_grid_data`,
+    its metric terms evaluated at the block's points and at the halo's
+    sources, `grid/points.py`) and the initial state are built from these
+    on the block alone; the builders take the whole cube as
+    `RankPart.whole`."""
 
     def __init__(self, partition: Partition, rank: int):
         self.partition, self.rank = partition, rank
@@ -252,6 +261,11 @@ class RankPart:
     def whole(cls, n: int, h: int = constants.N_HALO_DEFAULT) -> "RankPart":
         """The whole cube, the one part of layout (1, 1, 1)."""
         return cls(Partition((1, 1, 1), n, h), 0)
+
+    @property
+    def is_whole(self) -> bool:
+        """Whether this part is the whole cube (layout (1, 1, 1))."""
+        return self.partition.size == 1
 
     @property
     def shape(self) -> Tuple[int, int, int]:
@@ -274,23 +288,18 @@ class RankPart:
         _, i, j = self.indices()
         return is_compute(stagger, self.n, self.h, i, j)
 
-    def _held(self, spec) -> tuple:
-        b = self.box.index
-        out = [np.asarray(spec.src_tile)[b], np.asarray(spec.src_i)[b],
-               np.asarray(spec.src_j)[b]]
-        if spec.src_comp is not None:
-            out += [np.asarray(spec.src_comp)[b], np.asarray(spec.sign)[b]]
-        return tuple(out)
-
     def scalar_sources(self, stagger: str = "center") -> tuple:
         """(tile, i, j) of the point the halo gather of a `stagger` scalar
-        reads for each held point (the point itself outside the halo)."""
-        return self._held(get_topology(self.n, self.h).scalar_spec(stagger))
+        reads for each held point (the point itself outside the halo),
+        computed for the held points alone."""
+        return get_topology(self.n, self.h).scalar_source_at(
+            stagger, *self.indices())
 
     def vector_sources(self, u_stagger: str, v_stagger: str) -> tuple:
         """For each component of a vector pair, (tile, i, j, comp, sign) of
         each held point: the halo gather reads component `comp` (0 u, 1 v)
         at (tile, i, j) and multiplies it by `sign`."""
-        specs = get_topology(self.n, self.h).vector_spec(u_stagger,
-                                                         v_stagger)
-        return tuple(self._held(spec) for spec in specs)
+        topo = get_topology(self.n, self.h)
+        return tuple(topo.vector_source_at(u_stagger, v_stagger, comp,
+                                           *self.indices())
+                     for comp in (0, 1))

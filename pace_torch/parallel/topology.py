@@ -334,39 +334,91 @@ class CubedSphereTopology:
         y = J - self.halo + oy
         return x, y, I, J
 
-    def _source_point(self, t: int, region: np.ndarray, x, y):
-        """Map local continuous points to (src_tile, x', y') using the edge
-        transform for their region. Returns arrays; wedge/interior points map
-        to themselves."""
-        src_t = np.full(x.shape, t, dtype=np.int64)
-        xp = x.copy()
-        yp = y.copy()
-        for region_id, edge in ((1, WEST), (2, EAST), (3, SOUTH), (4, NORTH)):
-            mask = region == region_id
-            if not mask.any():
-                continue
-            tr = self.transforms[(t, edge)]
-            xe, ye = tr.apply_float(x[mask], y[mask], self.n)
-            xp[mask] = xe
-            yp[mask] = ye
-            src_t[mask] = tr.neighbor
-        return src_t, xp, yp
+    def scalar_source_at(self, stagger: str, t, i, j):
+        """(tile, i, j) that a `stagger` scalar's halo gather reads for the
+        storage points (t, i, j) (int arrays of one shape): the point
+        itself outside the edge halos (compute points, corner wedges,
+        padding)."""
+        ox, oy = _STAGGER_OFFSETS[stagger]
+        t, i, j = (np.asarray(a, np.int64) for a in np.broadcast_arrays(
+            t, i, j))
+        x = i - self.halo + ox
+        y = j - self.halo + oy
+        region = _region_of(x, y, self.n, self.halo)
+        st, si, sj = t.copy(), i.copy(), j.copy()
+        for tile in np.unique(t[(region >= 1) & (region <= 4)]):
+            for region_id, edge in ((1, WEST), (2, EAST), (3, SOUTH),
+                                    (4, NORTH)):
+                mask = (t == tile) & (region == region_id)
+                if not mask.any():
+                    continue
+                tr = self.transforms[(int(tile), edge)]
+                xp, yp = tr.apply_float(x[mask], y[mask], self.n)
+                si[mask] = np.rint(xp - ox).astype(np.int64) + self.halo
+                sj[mask] = np.rint(yp - oy).astype(np.int64) + self.halo
+                st[mask] = tr.neighbor
+        return st, si, sj
+
+    def vector_source_at(self, u_stagger: str, v_stagger: str, comp: int,
+                         t, i, j):
+        """(tile, i, j, component, sign) that the halo gather of component
+        `comp` (0 u, 1 v) of a vector pair reads for the storage points
+        (t, i, j): it reads that component at that point and multiplies
+        it by the sign.  The point itself outside the edge halos."""
+        stagger = u_stagger if comp == 0 else v_stagger
+        ox, oy = _STAGGER_OFFSETS[stagger]
+        u_off = _STAGGER_OFFSETS[u_stagger]
+        v_off = _STAGGER_OFFSETS[v_stagger]
+        t, i, j = (np.asarray(a, np.int64) for a in np.broadcast_arrays(
+            t, i, j))
+        x = i - self.halo + ox
+        y = j - self.halo + oy
+        region = _region_of(x, y, self.n, self.halo)
+        st, si, sj = t.copy(), i.copy(), j.copy()
+        sc = np.full(t.shape, comp, dtype=np.int64)
+        sg = np.ones(t.shape)
+        local_dir = np.array([1, 0]) if comp == 0 else np.array([0, 1])
+        for tile in np.unique(t[(region >= 1) & (region <= 4)]):
+            for region_id, edge in ((1, WEST), (2, EAST), (3, SOUTH),
+                                    (4, NORTH)):
+                mask = (t == tile) & (region == region_id)
+                if not mask.any():
+                    continue
+                tr = self.transforms[(int(tile), edge)]
+                xp, yp = tr.apply_float(x[mask], y[mask], self.n)
+                # direction of the local component in the neighbor's frame
+                # (A is a signed permutation, so exactly one component)
+                nbr_dir = tr.a_matrix @ local_dir
+                if nbr_dir[0] != 0:
+                    nbr_comp, sign, noff = 0, int(nbr_dir[0]), u_off
+                else:
+                    nbr_comp, sign, noff = 1, int(nbr_dir[1]), v_off
+                # the transformed points land exactly on the source
+                # staggering (a check of the staggering algebra)
+                assert np.allclose(xp - noff[0], np.rint(xp - noff[0]))
+                assert np.allclose(yp - noff[1], np.rint(yp - noff[1]))
+                si[mask] = np.rint(xp - noff[0]).astype(np.int64) + self.halo
+                sj[mask] = np.rint(yp - noff[1]).astype(np.int64) + self.halo
+                st[mask] = tr.neighbor
+                sc[mask] = nbr_comp
+                sg[mask] = sign
+        return st, si, sj, sc, sg
+
+    def _tile_points(self, stagger: str, t: int):
+        """Storage indices (t, I, J) of every point of tile t, and whether
+        each lies outside the corner wedges of `stagger`."""
+        ox, oy = _STAGGER_OFFSETS[stagger]
+        I, J = np.meshgrid(np.arange(self.N), np.arange(self.N),
+                           indexing="ij")
+        region = _region_of(I - self.halo + ox, J - self.halo + oy, self.n,
+                            self.halo)
+        return np.full(I.shape, t), I, J, region != 5
 
     def _build_scalar(self, stagger: str) -> HaloSpec:
-        ox, oy = _STAGGER_OFFSETS[stagger]
         specs_t, specs_i, specs_j, valid = [], [], [], []
         for t in range(6):
-            x, y, I, J = self._point_coords(stagger)
-            region = _region_of(x, y, self.n, self.halo)
-            src_t, xp, yp = self._source_point(t, region, x, y)
-            # back to storage indices in the source tile
-            si = np.rint(xp - ox).astype(np.int64) + self.halo
-            sj = np.rint(yp - oy).astype(np.int64) + self.halo
-            fill = (region >= 1) & (region <= 4)
-            si = np.where(fill, si, I)
-            sj = np.where(fill, sj, J)
-            st = np.where(fill, src_t, t)
-            ok = region != 5
+            T, I, J, ok = self._tile_points(stagger, t)
+            st, si, sj = self.scalar_source_at(stagger, T, I, J)
             # guard: all source indices in range
             assert si.min() >= 0 and si.max() < self.N
             assert sj.min() >= 0 and sj.max() < self.N
@@ -381,9 +433,7 @@ class CubedSphereTopology:
         )
 
     def _build_vector(self, u_stagger: str, v_stagger: str) -> HaloSpec:
-        """Build the gather map for the u component of a (u, v) vector pair;
-        the v component spec is built by `vector_spec` symmetrically and both
-        are returned together.
+        """The gather maps of the two components of a (u, v) vector pair.
 
         The local u halo value comes from the neighbor's u or v array
         depending on the rotation: with A the local->neighbor index
@@ -397,45 +447,11 @@ class CubedSphereTopology:
 
     def _build_vector_component(self, u_stagger, v_stagger, comp: int) -> HaloSpec:
         stagger = u_stagger if comp == 0 else v_stagger
-        ox, oy = _STAGGER_OFFSETS[stagger]
-        u_off = _STAGGER_OFFSETS[u_stagger]
-        v_off = _STAGGER_OFFSETS[v_stagger]
         all_t, all_i, all_j, all_c, all_s, valid = [], [], [], [], [], []
         for t in range(6):
-            x, y, I, J = self._point_coords(stagger)
-            region = _region_of(x, y, self.n, self.halo)
-            src_t = np.full(x.shape, t, dtype=np.int64)
-            si = I.copy(); sj = J.copy()
-            sc = np.full(x.shape, comp, dtype=np.int64)
-            sg = np.ones(x.shape)
-            for region_id, edge in ((1, WEST), (2, EAST), (3, SOUTH), (4, NORTH)):
-                mask = region == region_id
-                if not mask.any():
-                    continue
-                tr = self.transforms[(t, edge)]
-                A = tr.a_matrix
-                xp, yp = tr.apply_float(x[mask], y[mask], self.n)
-                # direction of the local component in neighbor frame
-                local_dir = np.array([1, 0]) if comp == 0 else np.array([0, 1])
-                nbr_dir = A @ local_dir  # signed unit vector
-                if nbr_dir[0] != 0:
-                    nbr_comp, sign = 0, int(nbr_dir[0])
-                    noff = u_off
-                else:
-                    nbr_comp, sign = 1, int(nbr_dir[1])
-                    noff = v_off
-                ii = np.rint(xp - noff[0]).astype(np.int64) + self.halo
-                jj = np.rint(yp - noff[1]).astype(np.int64) + self.halo
-                # verify the transformed points land exactly on the source
-                # staggering (sanity check of the staggering algebra)
-                assert np.allclose(xp - noff[0], np.rint(xp - noff[0]))
-                assert np.allclose(yp - noff[1], np.rint(yp - noff[1]))
-                si[mask] = ii
-                sj[mask] = jj
-                src_t[mask] = tr.neighbor
-                sc[mask] = nbr_comp
-                sg[mask] = sign
-            ok = region != 5
+            T, I, J, ok = self._tile_points(stagger, t)
+            src_t, si, sj, sc, sg = self.vector_source_at(
+                u_stagger, v_stagger, comp, T, I, J)
             assert si.min() >= 0 and si.max() < self.N
             assert sj.min() >= 0 and sj.max() < self.N
             all_t.append(src_t); all_i.append(si); all_j.append(sj)

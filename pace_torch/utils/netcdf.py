@@ -66,53 +66,151 @@ def _default_dims(name: str, arr: np.ndarray) -> Tuple[str, ...]:
     return tuple(f"d{k}_{name}" for k in range(arr.ndim))
 
 
+# NetCDF3 classic-format tags and types (the file is the one
+# `scipy.io.netcdf_file(..., "w", version=2)` writes, byte for byte)
+_ABSENT = b"\x00" * 8
+_NC_DIMENSION = b"\x00\x00\x00\n"
+_NC_VARIABLE = b"\x00\x00\x00\x0b"
+_NC_ATTRIBUTE = b"\x00\x00\x00\x0c"
+_NC_CHAR = b"\x00\x00\x00\x02"
+_NC_TYPES = {"b": b"\x00\x00\x00\x01", "h": b"\x00\x00\x00\x03",
+             "i": b"\x00\x00\x00\x04", "f": b"\x00\x00\x00\x05",
+             "d": b"\x00\x00\x00\x06"}
+_FILL = {"b": b"\x81", "h": b"\x80\x01", "i": b"\x80\x00\x00\x01",
+         "f": b"\x7c\xf0\x00\x00", "d": b"\x47\x9e" + b"\x00" * 6}
+
+
+def _written_dtype(dtype) -> np.dtype:
+    """The dtype `_as_writable` writes an array of `dtype` as."""
+    dtype = np.dtype(dtype)
+    if dtype not in _TYPECODES:
+        return np.dtype(np.float64)
+    return {np.dtype(np.int64): np.dtype(np.int32),
+            np.dtype(bool): np.dtype(np.int8)}.get(dtype, dtype)
+
+
+def _int(value: int) -> bytes:
+    return np.array(value, ">i4").tobytes()
+
+
+def _name(s: str) -> bytes:
+    data = s.encode("latin1")
+    return _int(len(data)) + data + b"\x00" * (-len(data) % 4)
+
+
+def _padded(data: bytes) -> bytes:
+    return data + b"\x00" * (-len(data) % 4)
+
+
+def _write_big_endian(f, arr: np.ndarray) -> None:
+    """`arr`'s values in big-endian order, a tile (leading index) at a
+    time."""
+    big = arr.dtype.newbyteorder(">")
+    for chunk in (arr if arr.ndim else [arr]):
+        f.write(np.ascontiguousarray(chunk, dtype=big).tobytes())
+
+
 def write_dataset(
     filename: str,
-    variables: Dict[str, np.ndarray],
+    variables,
     dims: Optional[Dict[str, Sequence[str]]] = None,
     attrs: Optional[Dict[str, str]] = None,
+    layout: Optional[Dict[str, Tuple[tuple, np.dtype]]] = None,
 ) -> None:
-    """Write arrays to a NetCDF3 (64-bit offset) file.
+    """Write arrays to a NetCDF3 (64-bit offset) file: the header first,
+    from every variable's shape and dtype, then each variable in turn at
+    its place, so that only the variable being written is held.
 
     Args:
-        variables: name -> array.
+        variables: name -> array; or, with `layout`, an iterable of (name,
+            array) pairs in any order, consumed one at a time.
         dims: optional name -> dimension-name tuple; same-named dimensions
             are shared (and must agree in size).  Defaults to per-variable
             (tile, x_<name>, y_<name>, ...) so no accidental coupling.
         attrs: global attributes (stored as strings).
+        layout: name -> (shape, dtype) of every variable, in the order
+            `variables` as a dict would give them.
     """
-    from scipy.io import netcdf_file
-
     dims = dims or {}
-    f = netcdf_file(filename, "w", version=2)
-    try:
-        for key, value in (attrs or {}).items():
-            setattr(f, key, str(value))
-        dim_sizes: Dict[str, int] = {}
-        planned = {}
-        for name, arr in variables.items():
-            arr, code = _as_writable(arr)
-            var_dims = tuple(dims.get(name) or _default_dims(name, arr))
-            if len(var_dims) != arr.ndim:
+    if layout is None:
+        layout = {name: (np.shape(a), np.asarray(a).dtype)
+                  for name, a in variables.items()}
+        variables = variables.items()
+    dim_sizes: Dict[str, int] = {}
+    planned = {}
+    for name, (shape, dtype) in layout.items():
+        shape = tuple(int(v) for v in shape)
+        var_dims = tuple(dims.get(name)
+                         or _default_dims(name, np.empty((0,) * len(shape))))
+        if len(var_dims) != len(shape):
+            raise ValueError(
+                f"{name}: {len(var_dims)} dims for rank-{len(shape)} array"
+            )
+        for d, size in zip(var_dims, shape):
+            if d in dim_sizes and dim_sizes[d] != size:
                 raise ValueError(
-                    f"{name}: {len(var_dims)} dims for rank-{arr.ndim} array"
+                    f"dimension {d!r}: conflicting sizes "
+                    f"{dim_sizes[d]} vs {size} (variable {name})"
                 )
-            for d, size in zip(var_dims, arr.shape):
-                if d in dim_sizes:
-                    if dim_sizes[d] != size:
-                        raise ValueError(
-                            f"dimension {d!r}: conflicting sizes "
-                            f"{dim_sizes[d]} vs {size} (variable {name})"
-                        )
-                else:
-                    dim_sizes[d] = size
-                    f.createDimension(d, size)
-            planned[name] = (arr, code, var_dims)
-        for name, (arr, code, var_dims) in planned.items():
-            v = f.createVariable(name, code, var_dims)
-            v[:] = arr
-    finally:
-        f.close()
+            if size == 0:
+                raise ValueError(f"dimension {d!r} of {name} is empty")
+            dim_sizes.setdefault(d, size)
+        planned[name] = (shape, _written_dtype(dtype), var_dims)
+    dim_ids = {d: k for k, d in enumerate(dim_sizes)}
+
+    header = bytearray(b"CDF\x02" + _int(0))
+    header += _NC_DIMENSION + _int(len(dim_sizes)) if dim_sizes else _ABSENT
+    for d, size in dim_sizes.items():
+        header += _name(d) + _int(size)
+    if attrs:
+        header += _NC_ATTRIBUTE + _int(len(attrs))
+        for key, value in attrs.items():
+            data = np.asarray(str(value), dtype="S")
+            header += (_name(key) + _NC_CHAR + _int(data.itemsize)
+                       + _padded(data.tobytes()))
+    else:
+        header += _ABSENT
+    # the data lie in order of decreasing shape (equal shapes in the given
+    # order), each padded to four bytes
+    order = sorted(planned, key=lambda n: planned[n][0], reverse=True)
+    header += _NC_VARIABLE + _int(len(order)) if order else _ABSENT
+    begins, sizes = {}, {}
+    for name in order:
+        shape, dtype, var_dims = planned[name]
+        vsize = int(np.prod(shape)) * dtype.itemsize
+        sizes[name] = vsize
+        vsize += -vsize % 4
+        header += (_name(name) + _int(len(var_dims))
+                   + b"".join(_int(dim_ids[d]) for d in var_dims) + _ABSENT
+                   + _NC_TYPES[_TYPECODES[dtype]] + _int(vsize))
+        begins[name] = len(header)
+        header += bytes(8)
+    offset = len(header)
+    for name in order:
+        header[begins[name]:begins[name] + 8] = np.array(
+            offset, ">i8").tobytes()
+        begins[name] = offset
+        offset += sizes[name] + -sizes[name] % 4
+    with open(filename, "wb") as f:
+        f.write(header)
+        written = set()
+        for name, arr in variables:
+            arr, code = _as_writable(arr)
+            shape, dtype, _ = planned[name]
+            if arr.shape != shape or arr.dtype != dtype or name in written:
+                raise ValueError(f"{name}: {arr.dtype}{arr.shape} is not "
+                                 f"the layout's {dtype}{shape} or came twice")
+            f.seek(begins[name])
+            _write_big_endian(f, arr)
+            pad = -sizes[name] % 4
+            f.write(_FILL[code] * (pad // len(_FILL[code])))
+            written.add(name)
+            del arr
+        if written != set(planned):
+            raise ValueError(f"variables {sorted(set(planned) - written)} "
+                             "were not given")
+        f.seek(offset)
+        f.truncate()
 
 
 def read_dataset(filename: str, cut=None) -> Dict[str, np.ndarray]:

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 
@@ -75,23 +75,21 @@ class ZarrVariableWriter:
         _write_json(os.path.join(self.dir, ".zattrs"), self._attrs)
 
     def append(self, value: np.ndarray, attrs: Optional[Dict] = None):
-        value = np.ascontiguousarray(value)
+        """Write `value` as the next time's chunks, one tile's copy at a
+        time (a view of a larger array is not copied whole)."""
+        value = np.asarray(value)
         if self._field_shape is None:
             self._init(value, attrs or {})
         if value.shape != self._field_shape:
             raise ValueError(
                 f"{self.name}: shape {value.shape} != {self._field_shape}")
         t = self.n_times
+        dtype = np.dtype(_DTYPE_MAP[np.dtype(self._dtype)])
         for tile in range(value.shape[0]):
             chunk_key = ".".join(
                 [str(t), str(tile)] + ["0"] * (value.ndim - 1))
             with open(os.path.join(self.dir, chunk_key), "wb") as f:
-                f.write(
-                    value[tile].astype(
-                        np.dtype(_DTYPE_MAP[np.dtype(self._dtype)]),
-                        copy=False,
-                    ).tobytes()
-                )
+                f.write(np.ascontiguousarray(value[tile], dtype=dtype).data)
         self.n_times += 1
         self._write_meta()
 
@@ -110,18 +108,24 @@ class ZarrMonitor:
         self._times = []
 
     def store(self, state: Dict) -> None:
+        names = [k for k in state if k != "time"]
+        self.store_fields(names, ((k, state[k]) for k in names),
+                          state.get("time", len(self._times)))
+
+    def store_fields(self, names, fields: Iterable, time) -> None:
+        """One record of the variables `names`, taken from the (name,
+        array) pairs `fields` one at a time (each written before the next
+        is taken), at `time`."""
         # every store must carry the same variables, or per-variable
         # arrays silently desynchronize from the shared time axis (the
         # NetCDF monitor fails loudly on the same input — match it)
-        names = {k for k in state if k != "time"}
+        names = set(names)
         if self._writers and names != set(self._writers):
             raise KeyError(
                 "inconsistent variables between zarr store calls: "
                 f"got {sorted(names)}, expected {sorted(self._writers)}"
             )
-        for name, value in state.items():
-            if name == "time":
-                continue
+        for name, value in fields:
             arr = as_numpy(value)
             if name not in self._writers:
                 self._writers[name] = ZarrVariableWriter(self.path, name)
@@ -129,7 +133,8 @@ class ZarrMonitor:
                 self._writers[name]._init(
                     arr, {"_ARRAY_DIMENSIONS": dims})
             self._writers[name].append(arr)
-        self._times.append(str(state.get("time", len(self._times))))
+            del arr, value
+        self._times.append(str(time))
         self._write_time()
 
     def _write_time(self) -> None:

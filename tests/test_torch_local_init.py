@@ -6,8 +6,9 @@ leaf of the rank's own build equals the whole cube's build cut to the rank
 start: the baroclinic wave, the tropical cyclone, restarts from a .npy
 directory, from NetCDF and from .npz, and the Fortran restart.  One case
 ties a rank's baroclinic block to the reference package's whole-cube
-build; one builds a rank's `Driver` with the whole-cube state builder
-made to raise.  Everything runs in this process."""
+build; two build a rank's `Driver` (baroclinic and tropical-cyclone
+starts) with the whole-cube state builder and the whole cube's metric
+terms made to raise.  Everything runs in this process."""
 
 import dataclasses
 import os
@@ -127,11 +128,11 @@ def test_a_ranks_baroclinic_block_is_the_cut_of_the_reference():
                 {k: np.asarray(v) for k, v in ref.items()})
 
 
-def test_a_driver_rank_never_builds_the_whole_cube_state(monkeypatch, whole):
+def _driver_rank(monkeypatch, start):
     """A (1, 2, 2) rank's Driver in this process (its process group
-    stubbed: no exchange happens while it is built), the whole-cube state
-    builder made to raise: its state is its block of the whole cube's, and
-    the whole cube's metric terms are dropped after."""
+    stubbed: no exchange happens while it is built) from `start`, with the
+    whole-cube state builder and the whole cube's metric terms made to
+    raise.  Returns (partition, rank, driver)."""
     from pace_torch.driver import Driver
     from pace_torch.driver.driver import MeshConfig
     from pace_torch.grid import generation
@@ -144,20 +145,54 @@ def test_a_driver_rank_never_builds_the_whole_cube_state(monkeypatch, whole):
         size: int
 
     def whole_cube(*args, **kwargs):
-        raise AssertionError("a rank built the whole cube's state")
+        raise AssertionError("a rank built the whole cube's state or terms")
 
     monkeypatch.setattr(MeshConfig, "build",
                         lambda self, n, h, device: (partition,
                                                     Group(rank, 4)))
     monkeypatch.setattr(RankPart, "whole", whole_cube)
+    monkeypatch.setattr(generation, "_metric_terms", whole_cube)
     driver = Driver.from_dict(dict(
         nx_tile=N_, nz=NZ, dt_atmos=225, minutes=1, dycore_only=True,
-        dtype="float64", initialization={"type": "baroclinic"},
+        dtype="float64", initialization={"type": start},
         mesh={"layout": [1, 2, 2]}), device="cpu")
     assert driver.rank == rank
-    assert generation._metric_terms.cache_info().currsize == 0
+    return partition, rank, driver
+
+
+def _assert_grid_cut(partition, rank, grid):
+    from pace_torch.grid.generation import generate_grid_data
+
+    want = generate_grid_data(N_, NZ, device="cpu", dtype=torch.float64
+                              ).scattered(partition.part(rank).cut)
+    for bundle in ("horizontal", "angle", "damping", "vertical"):
+        for f in dataclasses.fields(getattr(want, bundle)):
+            a = getattr(getattr(grid, bundle), f.name)
+            b = getattr(getattr(want, bundle), f.name)
+            assert (torch.equal(a, b) if isinstance(b, torch.Tensor)
+                    else a == b), (bundle, f.name)
+
+
+def test_a_driver_rank_never_builds_the_whole_cube_state(monkeypatch, whole):
+    """A (1, 2, 2) rank's baroclinic Driver, the whole-cube state builder
+    and the whole cube's metric terms made to raise: its state is its
+    block of the whole cube's, and its grid the whole cube's grid cut to
+    it."""
+    partition, rank, driver = _driver_rank(monkeypatch, "baroclinic")
+    monkeypatch.undo()
     _assert_cut(partition, rank, _leaves(driver.state.dycore_state),
                 whole["baroclinic"])
+    _assert_grid_cut(partition, rank, driver.state.grid_data)
+
+
+def test_a_driver_rank_never_builds_the_whole_cube_tc_state(monkeypatch,
+                                                            whole):
+    """The same for the tropical-cyclone start."""
+    partition, rank, driver = _driver_rank(monkeypatch, "tropicalcyclone")
+    monkeypatch.undo()
+    _assert_cut(partition, rank, _leaves(driver.state.dycore_state),
+                whole["tropicalcyclone"])
+    _assert_grid_cut(partition, rank, driver.state.grid_data)
 
 
 def test_a_ranks_report_lists_each_ranks_start_and_host_peak(tmp_path):
@@ -190,3 +225,22 @@ def test_a_ranks_report_lists_each_ranks_start_and_host_peak(tmp_path):
              device_peak_bytes=None),
         dict(rank=1, initialization=start + 2.5, host_peak_bytes=7,
              device_peak_bytes=9)]
+
+
+def test_a_one_rank_report_lists_its_rank(tmp_path):
+    """A one-rank run's perf JSON lists its own start and peaks under
+    `ranks`, as a run of several lists each rank's."""
+    import json
+
+    from pace_torch.driver.performance import PerformanceCollector
+
+    collector = PerformanceCollector("one", device="cpu")
+    with collector.total_timer.clock("initialization"):
+        pass
+    mine = collector.times()
+    collector.write_out_performance("torch/cpu", 225.0, str(tmp_path))
+    report = json.loads((tmp_path / "one_perf.json").read_text())
+    (rank,) = report["ranks"]
+    assert rank["rank"] == 0 and rank["device_peak_bytes"] is None
+    assert rank["initialization"] == mine["total_times"]["initialization"]
+    assert 0 < mine["host_peak_bytes"] <= rank["host_peak_bytes"]

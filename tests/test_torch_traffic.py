@@ -209,8 +209,8 @@ def test_record_tracer_advection_then_replay_one_tile(topo):
     with rec.replaying(tile=tile):
         solo = run(generate_grid_data(N_, 79, device="cpu",
                                       dtype=torch.float64,
-                                      scatter=Partition((6, 1, 1), N_)
-                                      .part(tile).cut),
+                                      part=Partition((6, 1, 1), N_)
+                                      .part(tile)),
                    slice(tile, tile + 1))
     for name, value in out.items():
         assert np.isfinite(value[:, H:H + N_, H:H + N_].numpy()).all()
@@ -236,8 +236,7 @@ def test_record_a_dycore_step_then_replay_one_tile():
         kw = dict(device="cpu", dtype=torch.float64)
         core = DynamicalCore(
             config, sizing,
-            generate_grid_data(N_, 79, **kw,
-                               scatter=None if part is None else part.cut),
+            generate_grid_data(N_, 79, **kw, part=part),
             timestep=225.0)
         return core.step_dynamics(init_baroclinic_state(sizing, **kw,
                                                         part=part))
