@@ -7,7 +7,8 @@ named, and prints no result lines.)
 
 Phases (any failure raises and exits non-zero; nothing falls back):
   0. device and toolchain report;
-  1. build the CUDA kernels from pace_torch/csrc with nvcc (sm_90a);
+  1. build the CUDA kernels from pace_torch/csrc with nvcc (sm_90a), one
+     nvcc process a source, all started together;
   2. each kernel against its plain PyTorch version on the card, at the
      main path's shapes (the transport also at hord 5 and 10; fillz on
      inputs with many negative columns, with few, and with a zero or
@@ -48,8 +49,9 @@ Phases (any failure raises and exits non-zero; nothing falls back):
   9. the yaml entry point, `pace_torch.driver.run.main`, on copies of the
      example configurations (only output paths, run length and, where
      stated, the restart section changed): baroclinic_c12.yaml on the card
-     and on the CPU (restarts within 1e-9) and for one step with a Chrome
-     trace (profile_dir) that holds every kernel launch,
+     and on the CPU (in a process of its own; restarts within 1e-9) and
+     for one step with a Chrome trace (profile_dir) that holds every
+     kernel launch,
      baroclinic_c12_coupled.yaml,
      c48_sections_perf.yaml with a step-3 restart that a second run
      continues to the same final state bit for bit,
@@ -69,7 +71,10 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      the trip counts it took plus d_sw's);
   11. the JW day-1 anchor: 192 steps of the C12/79 float64 baroclinic wave
      (k_split=1, n_split=4, dt=450 s) on the card, its digest within 1e-7
-     of tests/golden/jw_day1_c12_f64.json;
+     of tests/golden/jw_day1_c12_f64.json; it runs in a process of its own
+     (`chip_smoke.py --jw-day1 DIR`) beside phases 9 to 13, started after
+     phase 8 so that it shares the card with no phase that times the main
+     path, and is checked after phase 13;
   12. the other entry points: `pace_torch.driver.run` from a six-tile
      Fortran restart of the baroclinic C12 start (written here with scipy)
      for two steps, its first state the written one and its run finite; one
@@ -80,13 +85,15 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      float64 with 6 ranks, and the cases of the kernels' operators at
      C48/79 float64 with 54 ranks (3x3 a tile), each computed on the CPU,
      written as a savepoint pair, read back and validated on the card at
-     its own threshold, with K-T, K-S and K-F launched on the way;
+     its own threshold, with K-T, K-S and K-F launched on the way (the C48
+     cases in a process of their own, `chip_smoke.py --cases 48`);
      `python -m pace_torch.driver.tools memory` and `cost` on a copy of
      c48_sections_perf.yaml (state bytes, temporary memory, the kernel
      counts of a step) and `cost` of baroclinic_c12.yaml equal on the card
-     and the CPU; the native restart writer built, a restart through it
-     read back, and one C48 restart written through it and through
-     numpy.save in turns, timed;
+     and the CPU, four processes started after phase 10 (with phase
+     16's) beside phases 11 to 13; the native restart writer built, a
+     restart through it read back, and one C48 restart written through
+     it and through numpy.save in turns, timed;
   14. ranks of a (t, 1, 1) layout on the one card, started through
      torchrun (`chip_smoke.py --ranks DIR` is one rank), exchanging
      through gloo with pinned-host staging: two C12/79 float64 steps under
@@ -997,6 +1004,32 @@ def run_cli(path, device="cuda") -> dict:
     return launches
 
 
+def start_child(args, logname, cwd=REPO) -> tuple:
+    """`python3 ARGS` in a process of its own, from `cwd`, its standard
+    output and error to the file `logname`; the script stops it if it is
+    still running when the script ends.  Returns (log path, Popen)."""
+    logf = open(logname, "w")
+    proc = subprocess.Popen([sys.executable, *args], cwd=cwd, stdout=logf,
+                            stderr=subprocess.STDOUT,
+                            env=dict(os.environ, PYTHONPATH=REPO))
+    logf.close()
+    BACKGROUND.append(proc)
+    return logname, proc
+
+
+def wait_child(child, what, timeout=900) -> str:
+    """Wait for a child of `start_child`; raise, with the end of its log,
+    unless it exited 0.  Returns its log."""
+    logname, proc = child
+    rc = proc.wait(timeout=timeout)
+    with open(logname) as f:
+        text = f.read()
+    if rc != 0:
+        log(text[-4000:])
+        raise AssertionError(f"{what}: exit code {rc}")
+    return text
+
+
 def diagnostics_records(config) -> list:
     """Every record of the run's diagnostics as {name: array}, read back
     from their npz files or Zarr store (the formats the example
@@ -1219,9 +1252,14 @@ def run_yaml_configs(card) -> dict:
         paths = {dev: yaml_copy("baroclinic_c12.yaml",
                                 os.path.join(tmp, f"c12_{dev}"))
                  for dev in ("cuda", "cpu")}
+        # the CPU's run in a process of its own, beside the card's
+        cpu_run = start_child(
+            ["-m", "pace_torch.driver.run", paths["cpu"], "--log-level",
+             "WARNING", "--device", "cpu"], paths["cpu"] + ".log",
+            cwd=os.path.dirname(paths["cpu"]))
         launches = on_card(paths["cuda"])
         check_yaml_run(paths["cuda"], launches, card)
-        run_cli(paths["cpu"], device="cpu")
+        wait_child(cpu_run, "baroclinic_c12.yaml on the CPU", timeout=600)
         worst, err = interior_error(
             *(load_restart_arrays(os.path.join(tmp, f"c12_{dev}", "RESTART"))
               for dev in ("cuda", "cpu")), n=12)
@@ -1474,21 +1512,51 @@ def run_branches(card) -> dict:
 # phase 11: the JW day-1 anchor
 # ---------------------------------------------------------------------------
 
-def check_jw_day1() -> None:
+JW_OUT = os.path.join(REPO, "build", "phase11")
+
+
+def jw_day1_main(out: str) -> None:
+    """Phase 11's process (`chip_smoke.py --jw-day1 DIR`): the anchor's
+    192 steps on the card; its digest and wall time to DIR/jw_day1.json."""
     from pace_torch.validation import jw_day1
 
+    t0 = time.perf_counter()
+    got = jw_day1.run_day1("cuda", torch.float64)
+    with open(os.path.join(out, "jw_day1.json"), "w") as f:
+        json.dump(dict(digest=got, seconds=time.perf_counter() - t0), f)
+
+
+def start_jw_day1() -> tuple:
+    """Phase 11 in a process of its own: the anchor is a single process
+    that waits on its launches, so it runs beside phases 9 to 13."""
+    import shutil
+
+    shutil.rmtree(JW_OUT, ignore_errors=True)
+    os.makedirs(JW_OUT)
+    return time.perf_counter(), start_child(
+        [os.path.join(REPO, "chip_smoke.py"), "--jw-day1", JW_OUT],
+        os.path.join(JW_OUT, "jw_day1.log"))
+
+
+def check_jw_day1(started: tuple) -> None:
+    from pace_torch.validation import jw_day1
+
+    t_start, child = started
+    t_wait = time.perf_counter()
+    wait_child(child, "phase 11, the JW day-1 anchor")
     with open(os.path.join(REPO, "tests", "golden",
                            "jw_day1_c12_f64.json")) as f:
         record = json.load(f)
-    t0 = time.perf_counter()
-    got = jw_day1.run_day1("cuda", torch.float64)
-    wall = time.perf_counter() - t0
-    worst, bad = jw_day1.check(record["digest"], got)
+    with open(os.path.join(JW_OUT, "jw_day1.json")) as f:
+        run = json.load(f)
+    worst, bad = jw_day1.check(record["digest"], run["digest"])
     field = max(worst, key=worst.get)
     log(f"[11] JW day 1, C12/79 float64 k_split=1 n_split=4 dt=450, "
-        f"{jw_day1.STEPS} steps on the card in {wall:.1f} s: worst relative "
-        f"difference from the record {worst[field]:.3e} ({field}; bar "
-        f"{jw_day1.RTOL:g}); per entry "
+        f"{jw_day1.STEPS} steps on the card in {run['seconds']:.1f} s (a "
+        f"process of its own, started {t_wait - t_start:.0f} s before this "
+        f"check, which waited {time.perf_counter() - t_wait:.0f} s for it): "
+        f"worst relative difference from the record {worst[field]:.3e} "
+        f"({field}; bar {jw_day1.RTOL:g}); per entry "
         + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
         + f" {'FAIL' if bad else 'ok'}")
     if bad:
@@ -1702,6 +1770,25 @@ KERNEL_CASES = ("FvTp2d", "Tracer2D1L", "Riem_Solver_C", "Riem_Solver3",
                 "Fillz", "Remapping")
 
 
+CASES_OUT = os.path.join(REPO, "build", "phase13_cases")
+
+
+def cases_main(n: str) -> None:
+    """`chip_smoke.py --cases 48`: phase 13's kernel cases at C48 with 54
+    ranks in a process of its own, its lines on standard output."""
+    import pace_torch.utils.translate_cases_grid  # noqa: F401
+    import pace_torch.utils.translate_cases_physics  # noqa: F401
+
+    case_savepoints(KERNEL_CASES, int(n), (3, 3))
+
+
+def start_kernel_cases() -> tuple:
+    """The C48 kernel cases, started beside phase 13's C12 cases."""
+    os.makedirs(CASES_OUT, exist_ok=True)
+    return start_child([os.path.join(REPO, "chip_smoke.py"), "--cases", "48"],
+                       os.path.join(CASES_OUT, "c48.log"))
+
+
 def case_savepoints(names, n, layout) -> dict:
     """Each case of `names` at C`n`/79 float64 with `layout` ranks a tile:
     its `make_inputs` on the port's baroclinic state and one step of it
@@ -1776,78 +1863,99 @@ def case_savepoints(names, n, layout) -> dict:
     return launches
 
 
-def run_tools(path, action, device="cuda") -> dict:
+TOOLS_OUT = os.path.join(REPO, "build", "phase13_tools")
+
+
+def start_tool(path, action, device="cuda") -> tuple:
     """`python -m pace_torch.driver.tools <action> <path> --device
-    <device>` in a fresh interpreter, from the yaml's directory; returns
-    the report its last line prints."""
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "pace_torch.driver.tools", action, path,
-         "--device", device], cwd=os.path.dirname(path),
-        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
-        text=True, timeout=900)
-    if proc.returncode != 0:
-        raise AssertionError(f"tools {action} {device}: exit "
-                             f"{proc.returncode}\n{proc.stderr[-3000:]}")
-    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    <device>` in a process of its own, from the yaml's directory."""
+    logname = os.path.join(os.path.dirname(path), f"{action}_{device}.out")
+    return (time.perf_counter(), path, action, device,
+            start_child(["-m", "pace_torch.driver.tools", action, path,
+                         "--device", device], logname,
+                        cwd=os.path.dirname(path)))
+
+
+def tool_report(started) -> dict:
+    """Wait for a `start_tool` process; returns the report its last line
+    prints (the last line of its log that opens a JSON object: its
+    standard error shares the file)."""
+    t0, path, action, device, child = started
+    out = wait_child(child, f"tools {action} {device}")
+    report = json.loads([line for line in out.splitlines()
+                         if line.startswith("{")][-1])
     log(f"[13] tools {action} {os.path.basename(path)} --device {device} "
-        f"({time.perf_counter() - t0:.1f} s): "
+        f"(done {time.perf_counter() - t0:.1f} s after its start): "
         + json.dumps({k: v for k, v in report.items() if k != "ops"}))
     return report
 
 
-def check_tools(card) -> None:
-    """`driver.tools memory` and `cost` on a copy of c48_sections_perf.yaml
-    (output paths changed): the argument and output bytes are the state's,
-    the step's temporary memory positive, the kernel counts those of a
-    step of the configuration; and `cost` of baroclinic_c12.yaml equal on
-    the card and the CPU."""
-    import tempfile
+def start_tools() -> dict:
+    """check_tools' four processes, started together beside the phases
+    before it: `memory` and `cost` of a copy of c48_sections_perf.yaml
+    (output paths changed) on the card, `cost` of baroclinic_c12.yaml on
+    the card and on the CPU."""
+    import shutil
 
+    shutil.rmtree(TOOLS_OUT, ignore_errors=True)
+
+    def start(name, action, device="cuda"):
+        # a copy each, so that no two processes write in one directory
+        return start_tool(yaml_copy(name, os.path.join(
+            TOOLS_OUT, f"{name[:-5]}_{action}_{device}")), action, device)
+
+    return dict(memory=start("c48_sections_perf.yaml", "memory"),
+                cost=start("c48_sections_perf.yaml", "cost"),
+                c12=[start("baroclinic_c12.yaml", "cost", device)
+                     for device in ("cuda", "cpu")])
+
+
+def check_tools(card, started: dict) -> None:
+    """`driver.tools memory` and `cost` on a copy of c48_sections_perf.yaml
+    (`started`, from start_tools): the argument and output bytes are the
+    state's, the step's temporary memory positive, the kernel counts those
+    of a step of the configuration; and `cost` of baroclinic_c12.yaml
+    equal on the card and the CPU."""
     from pace_torch.driver.driver import DriverConfig
     from pace_torch.models.fv3.state import zeros_numpy
     from pace_torch.utils.gridtools import GridSizing
 
-    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
-        path = yaml_copy("c48_sections_perf.yaml", os.path.join(tmp, "c48"))
-        config = DriverConfig.from_yaml(path)
-        itemsize = np.dtype(config.dtype).itemsize
-        state_bytes = itemsize * sum(
-            a.size for a in zeros_numpy(GridSizing(config.nx_tile,
-                                                   config.nz)).values())
-        mem = run_tools(path, "memory")
-        ok = (mem["argument_size_in_bytes"] == state_bytes
-              == mem["output_size_in_bytes"]
-              and mem["peak_size_in_bytes"] > mem["temp_size_in_bytes"] > 0
-              and mem["generated_code_size_in_bytes"] > 0)
-        log(f"[13] memory: state {state_bytes} bytes, temp "
-            f"{mem['temp_size_in_bytes']} bytes (peak over the step less "
-            f"the bytes allocated before it), peak "
-            f"{mem['peak_size_in_bytes']} bytes on {card} "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"tools memory: {mem}")
-        cost = run_tools(path, "cost")
-        counts = {k: v["launches"] for k, v in cost["kernels"].items()}
-        expect = expected_launches(config.dycore_config)
-        ok = counts == expect
-        log(f"[13] cost: {cost['launches']} launches, "
-            f"{cost['bytes accessed']} bytes, {cost['flops']} flops a step, "
-            f"optimal {cost['optimal_seconds'] * 1e3:.3f} ms; kernels "
-            f"{counts}, a step of phase 9's run launches {expect} "
-            f"{'ok' if ok else 'FAIL'} on {card}")
-        if not ok:
-            raise AssertionError(f"tools cost kernels {counts} != {expect}")
-        path = yaml_copy("baroclinic_c12.yaml", os.path.join(tmp, "c12"))
-        on_card, on_cpu = (run_tools(path, "cost", device)
-                           for device in ("cuda", "cpu"))
-        same = ({k: v for k, v in on_card.items() if k != "device"}
-                == {k: v for k, v in on_cpu.items() if k != "device"})
-        log(f"[13] cost of baroclinic_c12.yaml on the card and on the CPU: "
-            f"{'equal' if same else 'DIFFER'}")
-        if not same:
-            raise AssertionError(f"cost differs: card {on_card}, cpu "
-                                 f"{on_cpu}")
+    config = DriverConfig.from_yaml(started["memory"][1])
+    itemsize = np.dtype(config.dtype).itemsize
+    state_bytes = itemsize * sum(
+        a.size for a in zeros_numpy(GridSizing(config.nx_tile,
+                                               config.nz)).values())
+    mem = tool_report(started["memory"])
+    ok = (mem["argument_size_in_bytes"] == state_bytes
+          == mem["output_size_in_bytes"]
+          and mem["peak_size_in_bytes"] > mem["temp_size_in_bytes"] > 0
+          and mem["generated_code_size_in_bytes"] > 0)
+    log(f"[13] memory: state {state_bytes} bytes, temp "
+        f"{mem['temp_size_in_bytes']} bytes (peak over the step less "
+        f"the bytes allocated before it), peak "
+        f"{mem['peak_size_in_bytes']} bytes on {card} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"tools memory: {mem}")
+    cost = tool_report(started["cost"])
+    counts = {k: v["launches"] for k, v in cost["kernels"].items()}
+    expect = expected_launches(config.dycore_config)
+    ok = counts == expect
+    log(f"[13] cost: {cost['launches']} launches, "
+        f"{cost['bytes accessed']} bytes, {cost['flops']} flops a step, "
+        f"optimal {cost['optimal_seconds'] * 1e3:.3f} ms; kernels "
+        f"{counts}, a step of phase 9's run launches {expect} "
+        f"{'ok' if ok else 'FAIL'} on {card}")
+    if not ok:
+        raise AssertionError(f"tools cost kernels {counts} != {expect}")
+    on_card, on_cpu = (tool_report(one) for one in started["c12"])
+    same = ({k: v for k, v in on_card.items() if k != "device"}
+            == {k: v for k, v in on_cpu.items() if k != "device"})
+    log(f"[13] cost of baroclinic_c12.yaml on the card and on the CPU: "
+        f"{'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"cost differs: card {on_card}, cpu "
+                             f"{on_cpu}")
 
 
 def check_fastpack(card) -> None:
@@ -3162,37 +3270,61 @@ def main(phases=None) -> None:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"[1] {line.strip()}")
 
+    log(f"[1] phases 0 and 1 took {time.perf_counter() - started:.0f} s")
+
+    def took(phase, t0):
+        log(f"[{phase}] phase {phase} took {time.perf_counter() - t0:.0f} s")
+
     # ---- phase 2
     results = {}
     if run(2):
+        t2 = time.perf_counter()
         check_transport(results)
         check_sim1(results)
         check_fillz(results)
         check_rank_shapes()
         check_split_shapes()
+        took(2, t2)
 
     # ---- phase 3
     if run(3):
+        t3 = time.perf_counter()
         check_c12_digests()
+        took(3, t3)
 
     # ---- phase 4: the main path
     if run(4):
+        t4 = time.perf_counter()
         launches = run_path(4, 48, 450.0, 2, 5, card, k_split=1, n_split=2)
+        took(4, t4)
 
     # ---- phase 5: the C96 SHiELD-like settings
     if run(5):
+        t5 = time.perf_counter()
         run_path(5, 96, 300.0, 1, 2, card, **SHIELD)
+        took(5, t5)
 
     # ---- phase 6: the production configuration of bench.py
     if run(6):
+        t6 = time.perf_counter()
         run_path(6, 48, 450.0, 1, 2, card, k_split=2, n_split=6)
+        took(6, t6)
 
     # ---- phases 7, 7b, 8: the coupled step
     if run(7):
+        t7 = time.perf_counter()
         coupled = run_coupled(card)
         check_card_against_cpu()
+        took(7, t7)
     if run(8):
+        t8 = time.perf_counter()
         run_emulator(card)
+        took(8, t8)
+
+    # ---- phase 11, the JW day-1 anchor, runs in a process of its own
+    # beside phases 9 to 13: after the phases that time the main path
+    if run(11):
+        jw = start_jw_day1()
 
     # ---- phase 9: the yaml entry point
     if run(9):
@@ -3206,13 +3338,12 @@ def main(phases=None) -> None:
         subcycle = run_branches(card)
         log(f"[10] phase 10 took {time.perf_counter() - t10:.0f} s")
 
-    # ---- phase 16's builds start here and run beside phases 11 to 13
+    # ---- phase 16's builds, and phase 13's tools and C48 cases, start
+    # here and run beside phases 11 to 13
     if run(16):
         local_init = start_local_init()
-
-    # ---- phase 11: the JW day-1 anchor
-    if run(11):
-        check_jw_day1()
+    if run(13):
+        tools, kernel_cases = start_tools(), start_kernel_cases()
 
     # ---- phase 12: the other entry points
     if run(12):
@@ -3228,10 +3359,17 @@ def main(phases=None) -> None:
         from pace_torch.utils.translate_cases import CASES
 
         case_savepoints(sorted(CASES), 12, (1, 1))
-        case_savepoints(KERNEL_CASES, 48, (3, 3))
-        check_tools(card)
+        for line in wait_child(kernel_cases, "phase 13's C48 cases",
+                               timeout=600).splitlines():
+            if line.startswith("[13]"):
+                log(line)
+        check_tools(card, tools)
         check_fastpack(card)
         log(f"[13] phase 13 took {time.perf_counter() - t13:.0f} s")
+
+    # ---- phase 11: the JW day-1 anchor's result
+    if run(11):
+        check_jw_day1(jw)
 
     # ---- phase 14: ranks of a (t, 1, 1) layout through torchrun (needs
     # phase 9's files)
@@ -3285,6 +3423,10 @@ if __name__ == "__main__":
         local_build_main(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--root-write"]:
         root_write_main(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--jw-day1"]:
+        jw_day1_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--cases"]:
+        cases_main(sys.argv[2])
     else:
         try:
             main({int(p) for p in sys.argv[2].split(",")}

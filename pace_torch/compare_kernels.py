@@ -76,10 +76,7 @@ def build_earlier(src_dir: pathlib.Path) -> ctypes.CDLL:
                if (src_dir / name).exists()]
     if not sources:
         raise SystemExit(f"no kernel source in {src_dir}")
-    proc = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(lib),
-                           *sources], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
+    _cuda.compile_library(sources, lib)
     return ctypes.CDLL(str(lib))
 
 

@@ -1,9 +1,10 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-The sources in pace_torch/csrc/*.cu are compiled with nvcc for sm_90a into
-one shared library with a plain C interface, loaded with ctypes.  The
-build happens at first use, into build/pace_torch/ beside the package, and
-is redone whenever the hash of the sources changes.  Every C entry point
+The sources in pace_torch/csrc/*.cu are compiled with nvcc for sm_90a, one
+nvcc process a source, all started together, and linked into one shared
+library with a plain C interface, loaded with ctypes.  The build happens
+at first use, into build/pace_torch/ beside the package, and is redone
+whenever the hash of the sources changes.  Every C entry point
 takes device pointers, integer sizes, double scalars and the CUDA stream,
 and returns cudaGetLastError() of its launches; `launch` raises on a
 nonzero code.
@@ -30,8 +31,9 @@ BUILD_DIR = _PKG.parent / "build" / "pace_torch"
 # and gains in time.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 class BuildInfo:
@@ -60,6 +62,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def compile_library(sources, lib: pathlib.Path, nvcc=None) -> str:
+    """Compile each of `sources` to an object file beside `lib`, one nvcc
+    process a source, all started together, then link them into the
+    shared library `lib`.  Returns nvcc's output (the ptxas report);
+    raises if a step fails."""
+    nvcc = nvcc or _nvcc()
+    objects, procs = [], []
+    for src in map(pathlib.Path, sources):
+        obj = lib.with_name(f"{lib.stem}.{src.stem}.{os.getpid()}.o")
+        objects.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    report = [proc.communicate()[0] for proc in procs]
+    try:
+        for src, proc, text in zip(sources, procs, report):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src} ({proc.returncode}):\n{text}")
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(lib),
+                               *map(str, objects)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):"
+                               f"\n{link.stdout}\n{link.stderr}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
+    return "".join(report)
+
+
 def build() -> BuildInfo:
     """Compile csrc/*.cu with NVCC_FLAGS into
     build/pace_torch/libpace_torch_<hash>.so unless that library already
@@ -68,21 +101,17 @@ def build() -> BuildInfo:
     for src in sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     lib = BUILD_DIR / f"libpace_torch_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return BuildInfo(lib, 0.0, "(cached library, not rebuilt)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    report = compile_library(sources(), tmp)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
-    return BuildInfo(lib, seconds, proc.stdout + proc.stderr)
+    return BuildInfo(lib, seconds, report)
 
 
 def library() -> ctypes.CDLL:

@@ -38,6 +38,42 @@ def torch_threads(n: int):
         torch.set_num_threads(old)
 
 
+_C12_RUNS = {}
+
+
+def c12_dycore_run(dtype=torch.float64, steps: int = 1):
+    """(sizing, dycore, [initial state, state after step 1, ...]) of the
+    port's C12/79 baroclinic-wave dycore on the CPU with the settings of
+    the reference's golden digests (tests/golden/c12_dycore_digest.json:
+    dt 225 s, do_sat_adj=False, the other settings the defaults).  The
+    steps are taken once per process and dtype, as far as any caller has
+    asked, on one torch thread, so that every caller gets the same bits
+    whatever its own thread count and whichever file asked first; each
+    call returns copies of the states, so the test files one process runs
+    share the steps and cannot change each other's."""
+    from pace_torch.grid.generation import generate_grid_data
+    from pace_torch.models.fv3.config import DynamicalCoreConfig
+    from pace_torch.models.fv3.dynamics import DynamicalCore
+    from pace_torch.models.fv3.init.baroclinic import init_baroclinic_state
+    from pace_torch.utils.gridtools import GridSizing
+
+    if dtype not in _C12_RUNS:
+        sizing = GridSizing(12, 79)
+        gd = generate_grid_data(12, 79, device="cpu", dtype=dtype)
+        core = DynamicalCore(DynamicalCoreConfig(do_sat_adj=False), sizing,
+                             gd, timestep=225.0)
+        _C12_RUNS[dtype] = (sizing, core, [init_baroclinic_state(
+            sizing, device="cpu", dtype=dtype)])
+    sizing, core, states = _C12_RUNS[dtype]
+    with torch_threads(1):
+        while len(states) <= steps:
+            states.append(core.step_dynamics(states[-1]))
+    copies = [state.replace(**{name: tensor.clone() for name, tensor
+                               in vars(state).items()})
+              for state in states[:steps + 1]]
+    return sizing, core, copies
+
+
 def _smooth(rng, shape, scale):
     """Band-limited random field: the PPM limiter branches stay exercised
     but values are physical-ish."""

@@ -34,20 +34,12 @@ def _torch_threads():
 def inputs():
     """(port grid data, reference grid data, {name: numpy array}) of
     op_suite's inputs."""
-    from pace_torch.grid.generation import generate_grid_data
-    from pace_torch.models.fv3.config import DynamicalCoreConfig
-    from pace_torch.models.fv3.dynamics import DynamicalCore
-    from pace_torch.models.fv3.init.baroclinic import init_baroclinic_state
     from pace_torch.parallel import halo as halo_mod
-    from pace_torch.utils.gridtools import GridSizing
+    from pace_torch.testing import c12_dycore_run
     from pace_tpu.grid.generation import generate_grid_data as ref_grid
 
-    sizing = GridSizing(N_, NZ)
-    gd = generate_grid_data(N_, NZ, device="cpu", dtype=torch.float64)
-    core = DynamicalCore(DynamicalCoreConfig(do_sat_adj=False), sizing, gd,
-                         timestep=DT)
-    state = core.step_dynamics(
-        init_baroclinic_state(sizing, device="cpu", dtype=torch.float64))
+    _, core, (_, state) = c12_dycore_run(torch.float64, 1)
+    gd = core.grid_data
     s = {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
     topo = core.topo
     center = topo.scalar_spec("center")

@@ -28,13 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from pace_torch.grid.generation import generate_grid_data
-from pace_torch.models.fv3.config import DynamicalCoreConfig
-from pace_torch.models.fv3.dynamics import DynamicalCore
-from pace_torch.models.fv3.init.baroclinic import init_baroclinic_state
-from pace_torch.testing import digest_errors
+from pace_torch.testing import c12_dycore_run, digest_errors
 from pace_torch.testing import state_digest as port_state_digest
-from pace_torch.utils.gridtools import GridSizing
 from tests.golden.make_golden import state_digest
 from tests.golden.op_suite import digest as op_digest
 
@@ -48,16 +43,8 @@ def _load(name):
 
 
 def _run(dtype, nsteps):
-    sizing = GridSizing(N_, NZ)
-    gd = generate_grid_data(N_, NZ, device="cpu", dtype=dtype)
-    core = DynamicalCore(DynamicalCoreConfig(do_sat_adj=False), sizing, gd,
-                         timestep=DT)
-    state = init_baroclinic_state(sizing, device="cpu", dtype=dtype)
-    states = []
-    for _ in range(nsteps):
-        state = core.step_dynamics(state)
-        states.append(state)
-    return sizing, core, states
+    sizing, core, states = c12_dycore_run(dtype, nsteps)
+    return sizing, core, states[1:]
 
 
 @pytest.fixture(scope="module")

@@ -1,9 +1,9 @@
 """The port needs no JAX: with `jax` made unimportable, a fresh interpreter
 imports every module of pace_torch (the physics, coupler and driver
-packages and the driver's I/O among them), builds the C12 grid and initial
-state, runs one dycore step, and one coupled step through the yaml entry
-point `python -m pace_torch.driver.run` with NetCDF diagnostics and
-restart, on the CPU; nothing of the reference package is imported on the
+packages and the driver's I/O among them), runs one coupled step through
+the yaml entry point `python -m pace_torch.driver.run` with NetCDF
+diagnostics and restart, on the CPU, and writes its state again through
+fastpack; nothing of the reference package is imported on the
 way (the ranks of tests/test_torch_sharded_step.py, and of its slow
 torchrun run, check the same).  And the port's entry points
 run on the card unless the caller asks for the CPU: read from their
@@ -57,18 +57,6 @@ for name in ("ops.saturation_adjustment", "ops.fv_subgridz",
              "parallel.halo", "parallel.traffic", "utils.pair_debug",
              "utils.gridtools"):
     assert "pace_torch." + name in walked, name
-from pace_torch.grid.generation import generate_grid_data
-from pace_torch.models.fv3.config import DynamicalCoreConfig
-from pace_torch.models.fv3.dynamics import DynamicalCore
-from pace_torch.models.fv3.init.baroclinic import init_baroclinic_state
-from pace_torch.utils.gridtools import GridSizing
-sizing = GridSizing(12, 79)
-gd = generate_grid_data(12, 79, device="cpu", dtype=torch.float32)
-core = DynamicalCore(DynamicalCoreConfig(do_sat_adj=False), sizing, gd, 225.0)
-state = core.step_dynamics(init_baroclinic_state(
-    sizing, device="cpu", dtype=torch.float32))
-h = sizing.halo
-assert bool(torch.isfinite(state.pt[:, h:h + 12, h:h + 12]).all())
 import os, tempfile, yaml
 from pace_torch.driver.restart import load_restart_arrays
 from pace_torch.driver.run import main
@@ -91,11 +79,14 @@ os.chdir(tmp)
 assert main([os.path.join(tmp, "config.yaml"), "--device", "cpu",
              "--log-level", "WARNING"]) == 0
 coupled = load_restart_arrays(os.path.join(tmp, "RESTART"))
+h = 3
 for name in ("pt", "delp", "qvapor", "u", "v", "w"):
     assert np.isfinite(coupled[name][:, h:h + 12, h:h + 12]).all(), name
 times, records = NetCDFMonitor.read(os.path.join(tmp, "out"))
 assert len(records) == 1 and np.isfinite(records[0]["pt"]).all()
 from pace_torch.driver.restart import write_restart
+from pace_torch.models.fv3.state import DycoreState
+state = DycoreState.from_numpy(coupled, "cpu", torch.float32)
 write_restart(state, None, os.path.join(tmp, "npy"))  # through fastpack
 back = load_restart_arrays(os.path.join(tmp, "npy"))
 assert np.array_equal(back["pt"], state.pt.numpy(), equal_nan=True)
@@ -179,14 +170,14 @@ def test_the_nine_day_run_defaults_to_the_card(monkeypatch):
 
     asked = []
 
-    def stand_in(days, device):
-        asked.append((days, device))
+    def stand_in(days, device, dtype, out, state_out, ulp_noise):
+        asked.append((days, device, dtype))
         raise RuntimeError("stop before the run")
 
     monkeypatch.setattr(jw_baroclinic_wave, "run", stand_in)
     with pytest.raises(RuntimeError, match="stop before"):
         jw_baroclinic_wave.main([])
-    assert asked == [(9, "cuda")]
+    assert asked == [(9, "cuda", "float32")]
 
 
 def test_a_rank_of_a_layout_runs_on_its_own_card(monkeypatch):

@@ -33,7 +33,7 @@ import pace_torch.utils.translate_cases_grid as grid_cases
 import pace_torch.utils.translate_cases_physics as physics_cases
 import pace_tpu.utils.translate_cases_grid  # noqa: F401  (registers)
 import pace_tpu.utils.translate_cases_physics  # noqa: F401
-from pace_torch.testing import torch_threads
+from pace_torch.testing import c12_dycore_run, torch_threads
 from pace_torch.utils.gridtools import GridSizing
 from pace_torch.utils.translate_cases import CASES, STATE_FIELDS, state_arrays
 from pace_tpu.utils.translate_cases import CASES as REF_CASES
@@ -96,18 +96,9 @@ def _one_thread():
 def port_c12_run():
     """(sizing, CPU grid data, state0, state after one step) of the port
     at C12/79 float64, the states as {field: numpy array}."""
-    from pace_torch.grid.generation import generate_grid_data
-    from pace_torch.models.fv3.config import DynamicalCoreConfig
-    from pace_torch.models.fv3.dynamics import DynamicalCore
-    from pace_torch.models.fv3.init.baroclinic import init_baroclinic_state
-
-    sizing = GridSizing(12, 79)
-    gd = generate_grid_data(12, 79, device="cpu", dtype=torch.float64)
-    core = DynamicalCore(DynamicalCoreConfig(do_sat_adj=False), sizing, gd,
-                         timestep=golden.DT)
-    state = init_baroclinic_state(sizing, device="cpu", dtype=torch.float64)
-    return (sizing, gd, state_arrays(state),
-            state_arrays(core.step_dynamics(state)))
+    sizing, core, (state0, state1) = c12_dycore_run(torch.float64, 1)
+    return (sizing, core.grid_data, state_arrays(state0),
+            state_arrays(state1))
 
 
 def check_case_digest(name, sizing, gd, s0, s1, scales=None):
