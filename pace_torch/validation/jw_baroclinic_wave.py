@@ -12,7 +12,7 @@ n_split=4, no saturation adjustment; float32 by default, float64 with
 
 Run on the card:  python -m pace_torch.validation.jw_baroclinic_wave [days]
     [--out PATH] [--device cuda|cpu] [--dtype float32|float64]
-    [--state-out NPZ]
+    [--state-out NPZ] [--state-in NPZ --start-day D]
 
 It prints one line a day and writes a JSON record in the layout of
 tests/golden/jw_day9.json (config, platform, one entry a day with ps_min,
@@ -22,7 +22,8 @@ as nvidia-smi reports them.  Each day also carries the same values
 unrounded (`full`) and a digest of ps, pt, delp, u, v and w on the compute
 domain (`digest`: sum, sum of squares and max |x|, each in float64).  The
 record is rewritten after every day, so a run that is cut keeps the days
-it finished.
+it finished.  `--state-in` starts from a state `--state-out` saved, and
+`--start-day` numbers the first day run (3 for a day-2 state).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -113,14 +115,17 @@ def card_line() -> str:
 
 def run(days: int = 9, device="cuda", dtype: str = "float32",
         out: str | None = None, state_out: str | None = None,
-        ulp_noise: int | None = None) -> dict:
+        ulp_noise: int | None = None, state_in: str | None = None,
+        start_day: int = 1) -> dict:
     """Step the wave `days` simulated days; returns the JSON record,
     written to `out` after every day if given.
     `state_out` receives the last state's fields (a compressed .npz, the
     padded layout of `DycoreState`).  Given `ulp_noise` (a seed), the run
     starts from the initial state moved by at most one ulp a value
     (`one_ulp_noise`): how far it then parts from the run without noise
-    is how far round-off alone moves the run."""
+    is how far round-off alone moves the run.  Given `state_in` (an .npz
+    `state_out` wrote), the run starts from that state instead of the
+    initial one; its days are numbered from `start_day`."""
     from pace_torch.grid.generation import generate_grid_data
     from pace_torch.models.fv3.config import DynamicalCoreConfig
     from pace_torch.models.fv3.dynamics import DynamicalCore
@@ -135,7 +140,11 @@ def run(days: int = 9, device="cuda", dtype: str = "float32",
     core = DynamicalCore(DynamicalCoreConfig(do_sat_adj=False, k_split=1,
                                              n_split=4),
                          sizing, gd, timestep=DT)
-    state = init_baroclinic_state(sizing, device=device, dtype=tdtype)
+    if state_in is None:
+        state = init_baroclinic_state(sizing, device=device, dtype=tdtype)
+    else:
+        state = DycoreState.from_numpy(dict(np.load(state_in)), device,
+                                       tdtype)
     if ulp_noise is not None:
         state = DycoreState.from_numpy(one_ulp_noise(
             {f.name: getattr(state, f.name).cpu().numpy()
@@ -151,10 +160,11 @@ def run(days: int = 9, device="cuda", dtype: str = "float32",
         "made_by": "pace_torch",
         "torch": torch.__version__,
         "ulp_noise": ulp_noise,
+        "state_in": None if state_in is None else os.path.basename(state_in),
         "days": [],
         "wall_s": [],
     }
-    for day in range(1, days + 1):
+    for day in range(start_day, start_day + days):
         t0 = time.perf_counter()
         for _ in range(int(86400 / DT)):
             state = core.step_dynamics(state)
@@ -194,9 +204,15 @@ def main(argv=None) -> int:
                         metavar="SEED",
                         help="start from the initial state moved by at most "
                              "one ulp a value")
+    parser.add_argument("--state-in", default=None,
+                        help="an .npz of --state-out to start from")
+    parser.add_argument("--start-day", type=int, default=1,
+                        help="the number of the first day run (3 from a "
+                             "day-2 state)")
     args = parser.parse_args(argv)
     record = run(args.days, args.device, dtype=args.dtype, out=args.out,
-                 state_out=args.state_out, ulp_noise=args.ulp_noise)
+                 state_out=args.state_out, ulp_noise=args.ulp_noise,
+                 state_in=args.state_in, start_day=args.start_day)
     print(f"wrote {args.out} ({record['device']}; {record['card']})")
     return 0
 

@@ -22,7 +22,13 @@ Committed records under pace_torch/validation/:
   stepped six times by pace_tpu, so that no float32 quantisation
   is left in it; then every operator of both packages on identical
   inputs, and two steps of both beside the port's steps from the same
-  start moved by one ulp.
+  start moved by one ulp;
+- jw_day3_lockstep_f64.json: day 3 of the float64 run, both packages on a
+  CPU from the port's card day-2 state, step by step (`_lockstep`): each
+  step of the reference beside the port's step from the reference's state
+  and the port's own run, the flagged steps taken apart (`_narrow`,
+  `_branch`, `_attach`), and the port's day 3 on the card and the
+  reference's day program from the same state against both (`_card`).
 
 Each day holds ps_min, ps_max, max |va| and the minimum's position
 unrounded (`full`), and the sum, sum of squares and max |x| of ps, pt,
@@ -38,7 +44,25 @@ rewritten after every day):
     JAX_PLATFORMS=cpu python tests/test_torch_jw_nine_day.py float64 \\
         --out jw_nine_day_jax_cpu_f64.json [--days 9]
     JAX_PLATFORMS=cpu python tests/test_torch_jw_nine_day.py float64 \\
+        --state-in day2.npz --start-day 3 --days 1 --out ref_day3.json
+    JAX_PLATFORMS=cpu python tests/test_torch_jw_nine_day.py float64 \\
+        --days 2 --out ref_days12.json --state-out ref_day2.npz
+    JAX_PLATFORMS=cpu python tests/test_torch_jw_nine_day.py float64 \\
         --from-state day9.npz --out jw_day9_same_state_f64.json
+    JAX_PLATFORMS=cpu python tests/test_torch_jw_nine_day.py float64 \\
+        --from-state day2.npz --lockstep 288 --out lockstep.json \\
+        --flagged-dir DIR
+    JAX_PLATFORMS=cpu python tests/test_torch_jw_nine_day.py float64 \\
+        --narrow DIR/lockstep_in_589.npz --out narrow.json
+    JAX_PLATFORMS=cpu python tests/test_torch_jw_nine_day.py float64 \\
+        --narrow DIR/lockstep_in_589.npz --branch 4 w 2 17 17 65 \\
+        --out narrow.json
+    JAX_PLATFORMS=cpu python tests/test_torch_jw_nine_day.py float64 \\
+        --attach 589 narrow.json --out lockstep.json
+    JAX_PLATFORMS=cpu python tests/test_torch_jw_nine_day.py float64 \\
+        --card card_day3.json ref_day3.json ref_days12.json \\
+        card_from_ref_day2.json ref_day3_from_ref_day2.json \\
+        card_day3.npz --out lockstep.json --flagged-dir DIR
 """
 
 import argparse
@@ -218,6 +242,107 @@ def test_one_state_steps_differ_only_as_round_off_moves_them():
             step["jax"]["full"]["ps_min_at"]
 
 
+# The lockstep over day 3 (`_lockstep`): steps 577-864 at dt 300 s.
+LOCKSTEP = "jw_day3_lockstep_f64.json"
+DAY3_STEPS = list(range(577, 865))
+
+
+def test_the_day3_lockstep_holds_every_step_and_its_flags():
+    """Every step of day 3, `lock` and `free` for each digested field with
+    the cells past CELL_BAR, a yardstick every YARDSTICK_EVERY steps, and
+    as flagged exactly the steps whose `lock` passes ROUND_OFF_MULTIPLE
+    times the latest yardstick."""
+    rec = load(LOCKSTEP)
+    assert rec["config"] == jw.config("float64")
+    assert (rec["round_off_multiple"], rec["cell_bar"],
+            rec["yardstick_every"]) == (ROUND_OFF_MULTIPLE, CELL_BAR,
+                                        YARDSTICK_EVERY)
+    assert [s["step"] for s in rec["steps"]] == DAY3_STEPS
+    names = set(jw.DIGEST_FIELDS)
+    latest, flagged = None, []
+    for s in rec["steps"]:
+        assert set(s["lock"]) == set(s["free"]) == names
+        if (s["step"] - DAY3_STEPS[0]) % YARDSTICK_EVERY == 0:
+            assert set(s["yardstick"]) == names
+        latest = s.get("yardstick", latest)
+        over = [n for n in names
+                if s["lock"][n] > ROUND_OFF_MULTIPLE * latest[n]]
+        assert s["flagged"] == bool(over), s["step"]
+        flagged += [s["step"]] if over else []
+        for key in ("lock", "free"):
+            assert set(s["cells"][key]) == {
+                n for n in names if s[key][n] > CELL_BAR}
+    assert [f["step"] for f in rec["flagged"]] == flagged
+
+
+def test_the_first_flagged_step_is_a_near_tie_the_inputs_decide():
+    """At the first flagged step no operator of the port decides a branch
+    otherwise than the reference on identical inputs: d_sw to round-off,
+    and the largest difference of any output (the SIM1 solve's
+    perturbation pressure) within ROUND_OFF_MULTIPLE times how far the
+    reference's own output moves when the call's inputs move by one ulp.
+    The packages' own
+    steps first part beyond the yardstick at a savepoint whose inputs lie
+    within it, and at the largest such part in d_sw one hord-6 smt5 test
+    of the field's transport falls the other way, on branch inputs that
+    differ between the packages by the recorded numbers of ulps (not 0:
+    no exact tie decided the other way), from a transported field that
+    differs on the stencil by less than that savepoint's yardstick."""
+    first = load(LOCKSTEP)["flagged"][0]
+    assert first["identical_inputs_d_sw"] <= 1e-15
+    assert first["identical_inputs_worst"][0] <= ROUND_OFF_MULTIPLE * \
+        first["identical_inputs_worst_yardstick"]
+    jumps = first["jumps"]
+    assert jumps[0]["inputs_over_yardstick"] <= ROUND_OFF_MULTIPLE
+    d_sw = max((j for j in jumps if j["savepoint"] == "D_SW-Out"),
+               key=lambda j: j["over_scale"] / j["yardstick"])
+    assert d_sw["inputs_over_yardstick"] <= ROUND_OFF_MULTIPLE
+    (branch,) = [b for b in first["branches"]
+                 if b["d_sw_call"] == d_sw["call"]]
+    assert branch["field"] == d_sw["var"] and branch["flips"]
+    for flip in branch["flips"]:
+        assert flip["smt5"]["jax"] != flip["smt5"]["port"]
+        for side, ulps in flip["ulps_between"].items():
+            values = [float.fromhex(flip[key][side])
+                      for key in ("jax", "port")]
+            assert _ulps(*values) == ulps > 0, side
+        assert max(point["over_scale"] for point in
+                   flip["stencil"].values()) < d_sw["yardstick"]
+
+
+def test_from_one_day2_state_both_packages_end_day3_together():
+    """From the port's card day-2 state the reference (step by step and
+    as its day program), the port on the CPU and the port on the card end
+    day 3 within 1e-11 hPa of each other in ps_min, within 1e-12 of the
+    reference's ps and delp digests, and within the lockstep's round-off
+    in every field.  From the reference's own day-2 state (its days 1-2
+    rerun here bit for bit as its record) the reference's day program
+    restarted ends day 3 exactly as its record, and the port on the card
+    ends where it ends from its own day-2 state: four orders away from the
+    reference, with the local signature of the packages' nine-day runs
+    (ps and delp digests 1e-10 relative).  So the day-3 gap between those
+    runs lies between the packages from the reference's day-2 state, and
+    does not show from the port's."""
+    rec = load(LOCKSTEP)
+    card = rec["card"]
+    assert "H100" in card["device"] and "W" in card["card"]
+    assert card["state_in"] == rec["start"]
+    assert card["ref_days12_are_the_records"] == [True, True]
+    ps_min, digests = card["ps_min_hpa"], card["digest_rel_vs_ref"]
+    for key in ("free", "card", "ref_day_program", "card_from_ref_day2"):
+        assert abs(ps_min[key] - ps_min["ref"]) < 1e-11, key
+        assert max(digests[key]["ps"], digests[key]["delp"]) < 1e-12, key
+    for a, b in (("card", "ref"), ("free", "ref"), ("card", "free")):
+        for name, diff in card["end_over_scale"][f"{a}_vs_{b}"].items():
+            assert diff < 1e-9, (a, b, name)
+    restart = "ref_day_program_from_ref_day2"
+    assert ps_min[restart] == ps_min["ref_record"]
+    assert digests[restart] == digests["ref_record"]
+    assert abs(ps_min["ref_record"] - ps_min["card_from_ref_day2"]) > 1e-8
+    assert min(digests["ref_record"]["ps"],
+               digests["ref_record"]["delp"]) > 1e-11
+
+
 @pytest.mark.slow
 def test_reference_day1_is_the_records(tmp_path):
     """The generator's day 1 (a C24 float64 day of pace_tpu on six CPU
@@ -243,10 +368,14 @@ def _jax(dtype_name: str):
     return jax
 
 
-def _generate(dtype_name: str, days: int, out: str) -> dict:
+def _generate(dtype_name: str, days: int, out: str, state_in=None,
+              start_day: int = 1, state_out=None) -> dict:
     """scripts/jw_regression.py's run (lines 43-88) at `dtype_name`, each
     day recorded as the port's run records it; `out` is rewritten after
-    every day."""
+    every day.  Given `state_in` (an .npz of `jw_baroclinic_wave
+    --state-out`), the run starts from that state, its days numbered from
+    `start_day`; `state_out` receives the last state's padded fields (an
+    .npz that both packages' `DycoreState.from_numpy` read)."""
     jax = _jax(dtype_name)
     import jax.numpy as jnp
     import numpy as np
@@ -255,6 +384,7 @@ def _generate(dtype_name: str, days: int, out: str) -> dict:
     from pace_tpu.models.fv3.config import DynamicalCoreConfig
     from pace_tpu.models.fv3.dynamics import DynamicalCore
     from pace_tpu.models.fv3.init.baroclinic import init_baroclinic_state
+    from pace_tpu.models.fv3.state import DycoreState
     from pace_tpu.ops.pallas import fvtp2d_pallas
     from pace_tpu.utils.gridtools import GridSizing
 
@@ -267,7 +397,8 @@ def _generate(dtype_name: str, days: int, out: str) -> dict:
     gd = generate_grid_data(jw.N, jw.NZ, dtype=dtype)
     cfg = DynamicalCoreConfig(do_sat_adj=False, k_split=1, n_split=4)
     core = DynamicalCore(cfg, sizing, gd, timestep=jw.DT)
-    state = init_baroclinic_state(sizing, dtype=dtype)
+    state = (init_baroclinic_state(sizing, dtype=dtype) if state_in is None
+             else DycoreState.from_numpy(dict(np.load(state_in)), dtype))
     steps_per_day = int(86400 / jw.DT)
     # One tile on each of six CPU devices, placed as pace_tpu's Driver
     # places a (6, 1, 1) mesh: the tiles step in parallel.
@@ -298,10 +429,11 @@ def _generate(dtype_name: str, days: int, out: str) -> dict:
         "commit": commit,
         "fused_dsw": fvtp2d_pallas.fused_dsw_enabled(dtype, cfg.n_split),
         "mesh_layout": list(TILE_LAYOUT),
+        "state_in": None if state_in is None else os.path.basename(state_in),
         "days": [],
         "wall_s": [],
     }
-    for day in range(1, days + 1):
+    for day in range(start_day, start_day + days):
         t0 = time.perf_counter()
         state = run_day_jit(state)
         fields = {name: jw.compute(name, np.asarray(getattr(state, name)))
@@ -316,6 +448,9 @@ def _generate(dtype_name: str, days: int, out: str) -> dict:
         full = rec["full"]
         print(f"day {day}: ps_min {full['ps_min_hpa']!r} hPa, max|va| "
               f"{full['max_abs_va']!r} m/s, wall {wall:.0f} s", flush=True)
+    if state_out is not None:
+        np.savez_compressed(state_out, **{
+            name: np.asarray(leaf) for name, leaf in vars(state).items()})
     return record
 
 
@@ -620,6 +755,794 @@ def _same_state(npz: str, out: str) -> dict:
     return record
 
 
+def _ref_stepper(mesh_layout=TILE_LAYOUT):
+    """The reference's float64 C24 JW dycore with its tiles on the mesh:
+    (jitted step, core, state from numpy arrays, numpy arrays of a
+    state)."""
+    jax = _jax("float64")
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from pace_tpu.driver.driver import MeshConfig
+    from pace_tpu.grid.generation import generate_grid_data as ref_grid
+    from pace_tpu.models.fv3.config import DynamicalCoreConfig as RefConfig
+    from pace_tpu.models.fv3.dynamics import DynamicalCore as RefCore
+    from pace_tpu.models.fv3.state import DycoreState as RefState
+    from pace_tpu.utils.gridtools import GridSizing as RefSizing
+
+    ref_core = RefCore(RefConfig(do_sat_adj=False, k_split=1, n_split=4),
+                       RefSizing(jw.N, jw.NZ),
+                       ref_grid(jw.N, jw.NZ, dtype=jnp.float64),
+                       timestep=jw.DT)
+    mesh = MeshConfig(layout=mesh_layout).build()
+
+    def shard(leaf):
+        spec = (P("tile", "x", "y") if leaf.ndim >= 3
+                else P("tile") if leaf.ndim >= 1 else P())
+        return jax.device_put(leaf, NamedSharding(mesh, spec))
+
+    def load(arrays):
+        return jax.tree_util.tree_map(
+            shard, RefState.from_numpy(arrays, jnp.float64))
+
+    def unload(state):
+        return {name: np.asarray(leaf) for name, leaf in vars(state).items()}
+
+    return jax.jit(ref_core.step_dynamics), ref_core, load, unload
+
+
+# The lockstep over day 3: fields whose difference over scale passes this
+# get the cell of their largest difference recorded; the one-ulp yardstick
+# is refreshed every YARDSTICK_EVERY steps and at every flagged step.
+CELL_BAR, YARDSTICK_EVERY = 1e-11, 24
+
+
+def _largest(a, b):
+    """(max |a - b| over max |b|, the (tile, i, j, k) of max |a - b|) on
+    compute-domain arrays."""
+    import numpy as np
+
+    d = np.abs(a - b)
+    at = np.unravel_index(int(np.argmax(d)), d.shape)
+    return (float(d.max() / np.abs(b).max()), [int(i) for i in at])
+
+
+# The port's side of the lockstep, in worker processes beside the
+# reference's: each holds the port's float64 C24 dycore, and the free
+# runner its own trajectory.
+_PORT = {}
+
+
+def _port_init(threads: int, npz=None):
+    import numpy as np
+    import torch
+
+    from pace_torch.grid.generation import generate_grid_data
+    from pace_torch.models.fv3.config import DynamicalCoreConfig
+    from pace_torch.models.fv3.dynamics import DynamicalCore
+    from pace_torch.utils.gridtools import GridSizing
+
+    torch.set_num_threads(threads)
+    gd = generate_grid_data(jw.N, jw.NZ, device="cpu", dtype=torch.float64)
+    _PORT["core"] = DynamicalCore(
+        DynamicalCoreConfig(do_sat_adj=False, k_split=1, n_split=4),
+        GridSizing(jw.N, jw.NZ), gd, timestep=jw.DT)
+    if npz is not None:
+        _PORT["free"] = _port_state(dict(np.load(npz)))
+
+
+def _port_state(arrays):
+    import torch
+
+    from pace_torch.models.fv3.state import DycoreState
+
+    return DycoreState.from_numpy(arrays, "cpu", torch.float64)
+
+
+def _port_fields(state) -> dict:
+    return {n: jw.compute(n, getattr(state, n).numpy())
+            for n in jw.DIGEST_FIELDS}
+
+
+def _port_step(arrays, ulp_seed=None) -> dict:
+    """The port's step from numpy `arrays` (moved by one ulp with
+    `ulp_seed`): the digested fields on the compute domain."""
+    if ulp_seed is not None:
+        arrays = jw.one_ulp_noise(arrays, ulp_seed)
+    return _port_fields(_PORT["core"].step_dynamics(_port_state(arrays)))
+
+
+def _free_step() -> dict:
+    _PORT["free"] = _PORT["core"].step_dynamics(_PORT["free"])
+    return _port_fields(_PORT["free"])
+
+
+def _lockstep(npz: str, steps: int, out: str, flagged_dir: str,
+              threads: int) -> dict:
+    """Both packages on the CPU at float64 from the port's saved state
+    `npz`, step by step: each step the reference steps its own state
+    (`ref' = R(ref)`), the port steps the reference's state (`lock =
+    P(ref)`) and its own free-running trajectory from `npz` (`free =
+    P(free)`).  Each step's record holds, for the digested fields, the
+    largest difference on the compute domain over the reference's max |x|
+    there of `lock` and `free` against `ref'`, with the cell for any past
+    CELL_BAR.  The one-ulp yardstick (the port's
+    step from `ref` moved by at most one ulp a value, against `lock`) is
+    taken every YARDSTICK_EVERY steps; a step whose `lock` passes
+    ROUND_OFF_MULTIPLE times the latest yardstick in any field takes its
+    own, and is flagged if it passes that too: the reference's input
+    state of a flagged step is saved to `flagged_dir`.  Steps are numbered
+    from the first of day 3 (DAY3_STEPS); the record is rewritten after
+    every step, and the last fields of `free` and `ref'` are saved to
+    `flagged_dir` (for `_card`).  The
+    port's steps run in worker processes of `threads` torch threads each
+    (two for `lock` and the yardsticks, one for `free`) beside the
+    reference's."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    ref_step, _, load, unload = _ref_stepper()
+    import jax
+    import numpy as np
+    import torch
+
+    names = jw.DIGEST_FIELDS
+    spawn = multiprocessing.get_context("spawn")
+    locks = ProcessPoolExecutor(2, spawn, _port_init, (threads,))
+    frees = ProcessPoolExecutor(1, spawn, _port_init, (threads, npz))
+    start = dict(np.load(npz))
+    ref, arrays = load(start), start
+    first_step = DAY3_STEPS[0]
+    record = {"config": jw.config("float64"), "start": os.path.basename(npz),
+              "first_step": first_step, "steps_asked": steps,
+              "round_off_multiple": ROUND_OFF_MULTIPLE,
+              "cell_bar": CELL_BAR, "yardstick_every": YARDSTICK_EVERY,
+              "mesh_layout": list(TILE_LAYOUT), "torch_threads": threads,
+              "jax": jax.__version__, "torch": torch.__version__,
+              "steps": [], "flagged": []}
+    free_futures = [frees.submit(_free_step) for _ in range(steps)]
+    latest = None
+    t0 = time.perf_counter()
+    for step in range(first_step, first_step + steps):
+        ref_next = ref_step(ref)  # dispatched; runs beside the port's steps
+        lock_f = locks.submit(_port_step, arrays)
+        due = latest is None or (step - first_step) % YARDSTICK_EVERY == 0
+        near_f = locks.submit(_port_step, arrays, step) if due else None
+        ref_arrays = unload(ref_next)
+        want = {n: jw.compute(n, ref_arrays[n]) for n in names}
+        lock, got = lock_f.result(), free_futures[step - first_step].result()
+        lock_d = {n: _largest(lock[n], want[n]) for n in names}
+        free_d = {n: _largest(got[n], want[n]) for n in names}
+        rec = {"step": step,
+               "lock": {n: d for n, (d, _) in lock_d.items()},
+               "free": {n: d for n, (d, _) in free_d.items()},
+               "cells": {key: {n: at for n, (d, at) in diffs.items()
+                               if d > CELL_BAR}
+                         for key, diffs in (("lock", lock_d),
+                                            ("free", free_d))}}
+        over = [n for n in names if latest is not None
+                and rec["lock"][n] > ROUND_OFF_MULTIPLE * latest[n]]
+        if near_f is None and over:
+            near_f = locks.submit(_port_step, arrays, step)
+        if near_f is not None:
+            near = near_f.result()
+            latest = {n: _largest(near[n], lock[n])[0] for n in names}
+            rec["yardstick"] = latest
+        over = [n for n in names
+                if rec["lock"][n] > ROUND_OFF_MULTIPLE * latest[n]]
+        rec["flagged"] = bool(over)
+        if over:
+            saved = os.path.join(flagged_dir, f"lockstep_in_{step}.npz")
+            np.savez_compressed(saved, **arrays)
+            record["flagged"].append({
+                "step": step, "fields": over, "state": os.path.basename(saved),
+                "over_yardstick": {n: rec["lock"][n] / latest[n]
+                                   for n in over}})
+        rec["elapsed_s"] = time.perf_counter() - t0
+        record["steps"].append(rec)
+        with open(out, "w") as f:
+            json.dump(record, f, indent=1)
+        print(f"step {step}: lock {max(rec['lock'].values()):.3g} free "
+              f"{max(rec['free'].values()):.3g}"
+              + (f" FLAGGED {over}" if over else "")
+              + f" ({rec['elapsed_s']:.1f} s)", flush=True)
+        ref, arrays = ref_next, ref_arrays
+    locks.shutdown()
+    frees.shutdown()
+    np.savez_compressed(os.path.join(flagged_dir, "lockstep_free_end.npz"),
+                        **got)
+    np.savez_compressed(os.path.join(flagged_dir, "lockstep_ref_end.npz"),
+                        **want)
+    return record
+
+
+# The day-3 runs `_card` adds to the lockstep record, from the port's
+# card day-2 state (the lockstep's start) and from the reference's own.
+CARD_RUNS = ("card", "ref_day_program", "ref_days12", "card_from_ref_day2",
+             "ref_day_program_from_ref_day2")
+
+
+def _card(out: str, card_state: str, ends: str, **paths) -> dict:
+    """Adds to the lockstep record `out` day 3 of other runs against the
+    lockstep's reference (`ref`, step by step) and the port's own CPU run
+    (`free`), whose last fields the lockstep saved in the directory
+    `ends`.  From the lockstep's start: the port on the card
+    (`jw_baroclinic_wave --state-in --state-out`: its record `card` and
+    last state `card_state`) and the reference's day program, one jitted
+    loop for the whole day as in its nine-day run (`_generate --state-in`:
+    `ref_day_program`).  From the reference's own day-2 state, saved by a
+    rerun of its days 1-2 (`_generate --state-out`: `ref_days12`, held to
+    the committed record's days 1-2): the port on the card
+    (`card_from_ref_day2`), the reference's day program
+    (`ref_day_program_from_ref_day2`), and the committed record's day 3
+    (`ref_record`: that program carried on from day 1 in one process).
+    For each run, ps_min and the largest relative difference of each
+    field's digest from `ref`'s; for the card, `free` and `ref`, each
+    field's largest difference over scale."""
+    import numpy as np
+
+    with open(out) as f:
+        record = json.load(f)
+    runs = {}
+    for key in CARD_RUNS:
+        with open(paths[key]) as f:
+            runs[key] = json.load(f)
+    names = jw.DIGEST_FIELDS
+    ends = {key: np.load(os.path.join(ends, f"lockstep_{key}_end.npz"))
+            for key in ("free", "ref")}
+    fields = dict({key: {n: ends[key][n] for n in names} for key in ends},
+                  card={n: jw.compute(n, np.load(card_state)[n])
+                        for n in names})
+    committed = load(RECORDS["jax_cpu_f64"])["days"]
+    days = dict({key: runs[key]["days"][0] for key in CARD_RUNS
+                 if key != "ref_days12"}, ref_record=committed[2])
+    assert all(day["day"] == 3 for day in days.values())
+    for key in ("card", "ref_day_program"):
+        assert runs[key]["state_in"] == record["start"], key
+    digests = dict({key: day["digest"] for key, day in days.items()},
+                   free={n: jw.field_digest(fields["free"][n])
+                         for n in names})
+    want = {n: jw.field_digest(fields["ref"][n]) for n in names}
+    record["card"] = {
+        "device": runs["card"]["device"], "card": runs["card"]["card"],
+        "state_in": runs["card"]["state_in"],
+        "ref_day2_state": runs["card_from_ref_day2"]["state_in"],
+        "ref_days12_are_the_records": [
+            (a["full"], a["digest"]) == (b["full"], b["digest"])
+            for a, b in zip(runs["ref_days12"]["days"], committed[:2])],
+        "ps_min_hpa": dict(
+            {key: float(fields[key]["ps"].min()) / 100.0
+             for key in ("free", "ref")},
+            **{key: day["full"]["ps_min_hpa"] for key, day in days.items()}),
+        "digest_rel_vs_ref": {
+            key: {n: max(rel(a, b) for a, b in zip(digest[n], want[n]))
+                  for n in names}
+            for key, digest in digests.items()},
+        "end_over_scale": {
+            f"{a}_vs_{b}": {n: _largest(fields[a][n], fields[b][n])[0]
+                            for n in names}
+            for a, b in (("card", "free"), ("card", "ref"),
+                         ("free", "ref"))},
+    }
+    with open(out, "w") as f:
+        json.dump(record, f, indent=1)
+    return record
+
+
+def _shadow_ops():
+    """(label, reference module, attribute, port function, position of n
+    in the reference's arguments or None) of every operator the
+    reference's step calls: its (n, h) become the port's Domain, or go
+    where the port's operator reads the block from `topo` (tracer
+    advection, c2l_ord4: position negated)."""
+    from pace_torch.models.fv3 import acoustics
+    from pace_torch.ops import (c2l_ord, c_sw, d_sw, del2cubed, moist_cv,
+                                neg_adj3, nh_p_grad, remapping, riemann,
+                                tracer_advection, updatedz, updatedzd)
+    from pace_tpu.models.fv3 import acoustics as r_ac
+    from pace_tpu.models.fv3 import dynamics as r_dyn
+    from pace_tpu.ops import c2l_ord as r_c2l
+    from pace_tpu.ops import c_sw as r_c_sw
+    from pace_tpu.ops import d_sw as r_d_sw
+    from pace_tpu.ops import moist_cv as r_mcv
+    from pace_tpu.ops import neg_adj3 as r_neg
+    from pace_tpu.ops import nh_p_grad as r_nh
+    from pace_tpu.ops import remapping as r_remap
+    from pace_tpu.ops import riemann as r_rm
+    from pace_tpu.ops import tracer_advection as r_tr
+    from pace_tpu.ops import updatedz as r_udz
+    from pace_tpu.ops import updatedzd as r_udzd
+
+    return [
+        ("fv_setup", r_mcv, "fv_setup", moist_cv.fv_setup, None),
+        ("c_sw", r_c_sw, "c_sw", c_sw.c_sw, 7),
+        ("update_dz_c", r_udz, "update_dz_c", updatedz.update_dz_c, 6),
+        ("riem_solver_c", r_rm, "riem_solver_c", riemann.riem_solver_c,
+         None),
+        ("p_grad_c", r_ac, "_p_grad_c", acoustics._p_grad_c, None),
+        ("d_sw", r_d_sw, "d_sw", d_sw.d_sw, 22),
+        ("update_dz_d", r_udzd, "update_dz_d", updatedzd.update_dz_d, 9),
+        ("riem_solver3", r_rm, "riem_solver3", riemann.riem_solver3, None),
+        ("pe_halo", r_nh, "pe_halo", nh_p_grad.pe_halo, 3),
+        ("pk3_halo", r_nh, "pk3_halo", nh_p_grad.pk3_halo, 4),
+        ("nh_p_grad", r_nh, "nh_p_grad", nh_p_grad.nh_p_grad, 7),
+        ("heat_hyperdiffusion", r_ac, "hyperdiffusion",
+         del2cubed.hyperdiffusion, 3),
+        ("apply_diffusive_heating", r_nh, "apply_diffusive_heating",
+         nh_p_grad.apply_diffusive_heating, None),
+        ("tracer_advection", r_tr, "tracer_advection",
+         tracer_advection.tracer_advection, -8),
+        ("remapping", r_remap, "lagrangian_to_eulerian",
+         remapping.lagrangian_to_eulerian, None),
+        ("omega_hyperdiffusion", r_dyn, "hyperdiffusion",
+         del2cubed.hyperdiffusion, 3),
+        ("neg_adj3", r_neg, "adjust_negative_tracers",
+         neg_adj3.adjust_negative_tracers, None),
+        ("c2l_ord4", r_c2l, "cubed_to_latlon", c2l_ord.cubed_to_latlon,
+         -4),
+    ]
+
+
+def _flat(out, prefix=""):
+    """[(name, array)] of an operator's output: an array, a tuple or a
+    dict of them, nested."""
+    if isinstance(out, dict):
+        return [item for key in sorted(out)
+                for item in _flat(out[key], f"{prefix}{key}.")]
+    if isinstance(out, (tuple, list)):
+        return [item for i, o in enumerate(out)
+                for item in _flat(o, f"{prefix}{i}.")]
+    return [(prefix.rstrip("."), out)]
+
+
+def _moved(a, rng):
+    """`a` (a jax array, or a dict, tuple or list of them, nested) with
+    each value of each floating-point array moved by at most one ulp, as
+    `jw.one_ulp_noise` moves a state; anything else as it is."""
+    import jax
+    import numpy as np
+
+    if isinstance(a, dict):
+        return {k: _moved(v, rng) for k, v in a.items()}
+    if isinstance(a, (tuple, list)):
+        moved = [_moved(v, rng) for v in a]
+        return type(a)(*moved) if hasattr(a, "_fields") else type(a)(moved)
+    if isinstance(a, jax.Array) and np.issubdtype(a.dtype, np.floating):
+        seed = int(rng.integers(2**31))
+        return jax.numpy.asarray(
+            jw.one_ulp_noise({"a": np.asarray(a)}, seed)["a"])
+    return a
+
+
+def _narrow(npz: str, out: str, threads: int) -> dict:
+    """One step of both packages from the reference's state `npz` (a
+    flagged step's input, `_lockstep`), taken apart at every operator
+    call (`_shadow_ops`, numbered in call order) and savepoint.  The port
+    steps first, keeping each operator call's array inputs and outputs;
+    then the reference's step runs eagerly, and at each of its operator
+    calls
+    - `operators`: the port's operator runs on the reference's inputs:
+      for each output, [largest difference on the compute domain over the
+      reference's max |x|, its (tile, i, j, k), the count of equal values,
+      the count of values]; and the operator's yardstick (`yardstick`):
+      for each output, how far the reference's own output moves over its
+      max |x| when each value of the call's array inputs moves by at most
+      one ulp (`_moved`);
+    - `carried`: the same measures of the port's own inputs and outputs of
+      that call against the reference's, each package having carried its
+      own values from `npz`: where the outputs part much further than the
+      inputs, that operator amplified the packages' round-off;
+    and `savepoints`: the two steps at every savepoint (C_SW, D_SW of each
+    acoustic substep, tracer advection, remap), each variable's measures
+    and the yardstick (the port's step from `npz` moved by one ulp against
+    the port's step)."""
+    _, ref_core, _, _ = _ref_stepper()
+    import jax
+    import numpy as np
+    import torch
+
+    from pace_torch.grid.generation import generate_grid_data
+    from pace_torch.models.fv3 import acoustics, dynamics
+    from pace_torch.models.fv3.config import DynamicalCoreConfig
+    from pace_torch.models.fv3.dynamics import DynamicalCore
+    from pace_torch.models.fv3.state import DycoreState
+    from pace_torch.utils import checkpointer as pcp
+    from pace_torch.utils.gridtools import GridSizing
+    from pace_tpu.models.fv3.state import DycoreState as RefState
+    from pace_tpu.utils import checkpointer as rcp
+
+    torch.set_num_threads(threads)
+    n, h = jw.N, jw.H
+    gd = generate_grid_data(n, jw.NZ, device="cpu", dtype=torch.float64)
+    core = DynamicalCore(DynamicalCoreConfig(do_sat_adj=False, k_split=1,
+                                             n_split=4),
+                         GridSizing(n, jw.NZ), gd, timestep=jw.DT)
+    same = {id(ref_core.grid_data): gd, id(ref_core.config): core.config,
+            id(ref_core.column_namelist): core.column_namelist,
+            id(ref_core.topo): core.topo}
+    arrays = dict(np.load(npz))
+    window = (slice(None), slice(h, h + n + 1), slice(h, h + n + 1))
+
+    def to_port(a):
+        if id(a) in same:
+            return same[id(a)]
+        if isinstance(a, type(ref_core.topo)):
+            return core.topo
+        if isinstance(a, dict):
+            return {k: to_port(v) for k, v in a.items()}
+        if isinstance(a, jax.Array):
+            return torch.tensor(np.asarray(a))
+        return a
+
+    def numpy(a):
+        a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        return np.asarray(a, np.float64)
+
+    def arrays_of(items):
+        """The arrays among `items`, on the compute domain."""
+        return {name: a[window] if a.ndim >= 3 else a
+                for name, a in ((name, numpy(a)) for name, a in items
+                                if isinstance(a, (torch.Tensor, jax.Array)))}
+
+    def call_arrays(args, kwargs):
+        return arrays_of(_flat(list(args)) + _flat(
+            {k: v for k, v in kwargs.items()}, "kw."))
+
+    def diff(r, g):
+        """[largest |g - r| over max |r|, its index, equal values,
+        values] of two arrays on the compute domain."""
+        r, g = numpy(r), numpy(g)
+        d = np.where(np.isnan(r) & np.isnan(g), 0.0, np.abs(g - r))
+        at = np.unravel_index(int(np.nanargmax(d)), d.shape) if d.size \
+            else ()
+        scale = float(np.nanmax(np.abs(r))) if r.size else 0.0
+        return [float(np.nanmax(d) / (scale + 1e-300)) if d.size else 0.0,
+                [int(i) for i in at], int((d == 0).sum()), int(d.size)]
+
+    def port_args(args, kwargs, n_at):
+        pargs = [to_port(a) for a in args]
+        if n_at is not None:
+            pargs[abs(n_at):abs(n_at) + 2] = (
+                [core.topo.domain] if n_at > 0 else [])
+        return pargs, {k: to_port(v) for k, v in kwargs.items()
+                       if k != "hydrostatic"}
+
+    ops = _shadow_ops()
+    sites = {"heat_hyperdiffusion": acoustics, "p_grad_c": acoustics,
+             "omega_hyperdiffusion": dynamics}
+
+    def patch(wrap):
+        patched = []
+        for label, module, attr, port_fn, n_at in ops:
+            if wrap.__name__ == "capture":
+                module = sites.get(label, sys.modules[port_fn.__module__])
+                attr = attr if label in sites else port_fn.__name__
+            fn = getattr(module, attr)
+            patched.append((module, attr, fn))
+            setattr(module, attr, wrap(label, fn, port_fn, n_at))
+        return patched
+
+    def unpatch(patched):
+        for module, attr, fn in patched:
+            setattr(module, attr, fn)
+
+    # the port's own step, each operator call's arrays kept
+    kept = {}
+
+    def capture(label, fn, port_fn, n_at):
+        def wrapper(*args, **kwargs):
+            result = fn(*args, **kwargs)
+            kept.setdefault(label, []).append(
+                (call_arrays(args, kwargs), arrays_of(_flat(result))))
+            return result
+        return wrapper
+
+    def port_step(a):
+        snap = pcp.SnapshotCheckpointer()
+        with pcp.checkpointing(snap):
+            core.step_dynamics(DycoreState.from_numpy(a, "cpu",
+                                                      torch.float64))
+        return snap.data
+
+    patched = patch(capture)
+    try:
+        mine = port_step(arrays)
+    finally:
+        unpatch(patched)
+    near = port_step(jw.one_ulp_noise(arrays, 0))
+
+    calls, operators, carried = {}, [], []
+    rng, inside = np.random.default_rng(0), []
+
+    def shadow(label, fn, port_fn, n_at):
+        def wrapper(*args, **kwargs):
+            if inside:  # an operator called by the yardstick's operator
+                return fn(*args, **kwargs)
+            result = fn(*args, **kwargs)
+            calls[label] = calls.get(label, 0) + 1
+            rec = {"op": label, "call": calls[label]}
+            pargs, pkw = port_args(args, kwargs, n_at)
+            want = arrays_of(_flat(result))
+            try:
+                got = arrays_of(_flat(port_fn(*pargs, **pkw)))
+                rec["outputs"] = {k: diff(want[k], got[k]) for k in want}
+            except Exception as e:  # recorded, and the step goes on
+                rec["error"] = repr(e)
+            inside.append(label)
+            try:
+                near = arrays_of(_flat(fn(*_moved(args, rng),
+                                          **_moved(kwargs, rng))))
+            finally:
+                inside.pop()
+            rec["yardstick"] = {k: diff(want[k], near[k])[0] for k in want}
+            operators.append(rec)
+            port_in, port_out = kept[label][calls[label] - 1]
+            ref_in = call_arrays(pargs, pkw)
+            carried.append({
+                "op": label, "call": calls[label],
+                "inputs": {k: diff(ref_in[k], port_in[k]) for k in ref_in},
+                "outputs": {k: diff(want[k], port_out[k]) for k in want}})
+            print(label, calls[label], max(
+                (v[0] for v in rec.get("outputs", {}).values()),
+                default=None), max(v[0] for v in carried[-1][
+                    "outputs"].values()), flush=True)
+            return result
+        return wrapper
+
+    patched = patch(shadow)
+    ref_snap = rcp.SnapshotCheckpointer()
+    try:
+        with jax.disable_jit(), rcp.checkpointing(ref_snap):
+            ref_core.step_dynamics(RefState.from_numpy(arrays,
+                                                       np.float64))
+    finally:
+        unpatch(patched)
+    savepoints = []
+    for name, variables in ref_snap.data.items():
+        for var, values in variables.items():
+            for i, r in enumerate(values):
+                g, y = mine[name][var][i], near[name][var][i]
+                savepoints.append({
+                    "savepoint": name, "call": i + 1, "var": var,
+                    "diff": diff(r, g), "yardstick": diff(g, y)[0]})
+    record = {"config": jw.config("float64"), "start": os.path.basename(npz),
+              "operators": operators, "carried": carried,
+              "savepoints": savepoints}
+    with open(out, "w") as f:
+        json.dump(record, f, indent=1)
+    return record
+
+
+def _ulps(a: float, b: float) -> int:
+    """Units in the last place between float64 values `a` and `b`."""
+    import numpy as np
+
+    ia, ib = (int(np.array(x, np.float64).view(np.int64)) for x in (a, b))
+    ia, ib = (i if i >= 0 else -(i & 0x7FFFFFFFFFFFFFFF) for i in (ia, ib))
+    return abs(ia - ib)
+
+
+# The PPM flux passes of fv_tp_2d (xppm.py/yppm.py at hord < 8), in the
+# order of its `_flux_core` calls: each interface takes the PPM correction
+# where smt5 = 3|b0| < |bl - br| holds on either side of it, first-order
+# upwind where it holds on neither.
+FLUX_PASSES = ("y inner", "x outer", "x inner", "y outer")
+
+
+def _branch(npz: str, out: str, threads: int, call: int, field: str,
+            cell) -> dict:
+    """The hord-6 branch inputs of `field`'s transport in d_sw call `call`
+    of the step from the reference's state `npz`, each package carrying
+    its own values from `npz` (each package's step is stopped after that
+    call): the smt5 operands of each `_flux_core` call of xppm in that
+    d_sw call, bl and br from the `_compute_al` it calls, kept for the
+    four passes of the fv_tp_2d call whose first pass transports `field`.
+    For each pass it counts the interfaces of the compute domain where the
+    packages' smt5 differ and records the four nearest `cell` (tile, i,
+    j, k on the compute domain): bl, br, b0 and the two sides of smt5's
+    comparison in hex from each package, each value's distance in ulps
+    between the packages, how many ulps apart the two sides lie, and the
+    transported field on the five-point stencil of bl and br.  Added to
+    the `_narrow` record `out` under `branches`."""
+    _, ref_core, _, _ = _ref_stepper()
+    import jax
+    import numpy as np
+    import torch
+
+    from pace_torch.grid.generation import generate_grid_data
+    from pace_torch.models.fv3.config import DynamicalCoreConfig
+    from pace_torch.models.fv3.dynamics import DynamicalCore
+    from pace_torch.models.fv3.state import DycoreState
+    from pace_torch.ops import d_sw, xppm
+    from pace_torch.utils.gridtools import GridSizing
+    from pace_tpu.models.fv3.state import DycoreState as RefState
+    from pace_tpu.ops import d_sw as r_d_sw
+    from pace_tpu.ops import xppm as r_xppm
+
+    torch.set_num_threads(threads)
+    n, h = jw.N, jw.H
+    gd = generate_grid_data(n, jw.NZ, device="cpu", dtype=torch.float64)
+    core = DynamicalCore(DynamicalCoreConfig(do_sat_adj=False, k_split=1,
+                                             n_split=4),
+                         GridSizing(n, jw.NZ), gd, timestep=jw.DT)
+    arrays = dict(np.load(npz))
+    index = {"w": 4, "pt": 1, "delp": 0, "q_con": 14}[field]
+    window = (slice(None), slice(h, h + n), slice(h, h + n))
+
+    def numpy(a):
+        return np.asarray(a.numpy() if isinstance(a, torch.Tensor) else a)
+
+    class Stop(Exception):
+        pass
+
+    def passes_of(step, d_sw_module, xppm_module, sh_at):
+        """Runs `step` to the end of d_sw call `call` with d_sw and xppm's
+        `_flux_core` and `_compute_al` wrapped; returns {pass: [bl, br,
+        q]} of `field`'s fv_tp_2d call.  `sh_at` is the position of the
+        axis shift among `_flux_core`'s arguments after q."""
+        d_sw_fn = d_sw_module.d_sw
+        core_fn, al_fn = xppm_module._flux_core, xppm_module._compute_al
+        count, kept, als, got = [0], [], [], {}
+
+        def al_wrapper(*args, **kwargs):
+            als.append(al_fn(*args, **kwargs))
+            return als[-1]
+
+        def core_wrapper(q, *args):
+            als.clear()
+            result = core_fn(q, *args)
+            if als:  # hord < 8: smt5 from this al
+                (al,) = als
+                kept.append([al - q, args[sh_at](al, 1) - q, q])
+            return result
+
+        def d_sw_wrapper(*args, **kwargs):
+            count[0] += 1
+            if count[0] != call:
+                return d_sw_fn(*args, **kwargs)
+            xppm_module._flux_core = core_wrapper
+            xppm_module._compute_al = al_wrapper
+            try:
+                d_sw_fn(*args, **kwargs)
+            finally:
+                xppm_module._flux_core = core_fn
+                xppm_module._compute_al = al_fn
+            target = numpy(args[index])[window]
+            (first,) = [i for i in range(0, len(kept), len(FLUX_PASSES))
+                        if np.array_equal(numpy(kept[i][2])[window],
+                                          target)]
+            got.update({name: [numpy(a) for a in kept[first + j]]
+                        for j, name in enumerate(FLUX_PASSES)})
+            raise Stop
+
+        d_sw_module.d_sw = d_sw_wrapper
+        try:
+            step()
+        except Stop:
+            pass
+        finally:
+            d_sw_module.d_sw = d_sw_fn
+        return got
+
+    def port_step():
+        core.step_dynamics(DycoreState.from_numpy(arrays, "cpu",
+                                                  torch.float64))
+
+    def ref_step():
+        with jax.disable_jit():
+            ref_core.step_dynamics(RefState.from_numpy(arrays, np.float64))
+
+    # _flux_core(q, courant, dgrid, dom, ord_, sh, ...) in the port and
+    # _flux_core(q, courant, dgrid, n, h, ord_, sh, ...) in the reference
+    passes = {"port": passes_of(port_step, d_sw, xppm, 4),
+              "jax": passes_of(ref_step, r_d_sw, r_xppm, 5)}
+    t, ci, cj, k = cell
+    found = []
+    inner = (slice(None), slice(h - 1, h + n + 2), slice(h - 1, h + n + 2))
+    for name, axis in zip(FLUX_PASSES, (2, 1, 1, 2)):
+        sides = {}
+        for key in ("jax", "port"):
+            bl, br, q = passes[key][name]
+            b0 = bl + br
+            sides[key] = (bl, br, b0, 3.0 * np.abs(b0), np.abs(bl - br), q)
+        smt5 = {key: v[3] < v[4] for key, v in sides.items()}
+        differ = np.zeros_like(smt5["jax"])
+        differ[inner] = smt5["jax"][inner] != smt5["port"][inner]
+        flips = sorted(zip(*np.nonzero(differ)), key=lambda a: (
+            a[0] != t, abs(a[3] - k),
+            abs(a[1] - h - ci) + abs(a[2] - h - cj)))
+        print(f"{name}: smt5 differs at {len(flips)} points", flush=True)
+        q_scale = float(np.abs(sides["jax"][5][inner]).max())
+        for at in flips[:4]:
+            at = tuple(int(a) for a in at)
+            rec = {"pass": name, "at": [at[0], at[1] - h, at[2] - h, at[3]],
+                   "smt5": {key: bool(v[at]) for key, v in smt5.items()}}
+            for key, v in sides.items():
+                rec[key] = {label: float(a[at]).hex() for label, a in
+                            zip(("bl", "br", "b0", "3|b0|", "|bl-br|"), v)}
+            rec["ulps_between"] = {
+                label: _ulps(float(sides["jax"][m][at]),
+                             float(sides["port"][m][at]))
+                for m, label in ((0, "bl"), (1, "br"), (3, "3|b0|"),
+                                 (4, "|bl-br|"))}
+            rec["ulps_apart"] = {key: _ulps(float(v[3][at]), float(v[4][at]))
+                                 for key, v in sides.items()}
+            # the transported field on the 5-point stencil of bl and br
+            stencil = {}
+            for d in range(-2, 3):
+                pt = list(at)
+                pt[axis] += d
+                a, b = (float(sides[key][5][tuple(pt)])
+                        for key in ("jax", "port"))
+                stencil[str(d)] = {"jax": a.hex(), "port": b.hex(),
+                                   "ulps": _ulps(a, b),
+                                   "over_scale": abs(a - b) / q_scale}
+            rec["stencil"] = stencil
+            found.append(rec)
+            print(json.dumps(rec), flush=True)
+    with open(out) as f:
+        record = json.load(f)
+    branches = [b for b in record.get("branches", [])
+                if (b["d_sw_call"], b["field"]) != (call, field)]
+    record["branches"] = sorted(
+        branches + [{"d_sw_call": call, "field": field, "cell": list(cell),
+                     "flips": found}], key=lambda b: b["d_sw_call"])
+    with open(out, "w") as f:
+        json.dump(record, f, indent=1)
+    return record
+
+
+def _attach(out: str, step: int, narrow: str) -> dict:
+    """Adds to the lockstep record `out`'s flagged step `step` what the
+    `_narrow`/`_branch` record `narrow` of its input found: the largest
+    difference of any operator output on identical inputs, and d_sw's;
+    each savepoint value where the packages' own steps part by more than
+    ROUND_OFF_MULTIPLE times the yardstick (`jumps`, in the step's order,
+    each with the largest ratio to the yardstick among the inputs of that
+    call where the savepoint has an `-In`); and the branch inputs.  The
+    largest operator difference comes with that output's yardstick (the
+    reference's own output moved by one-ulp inputs)."""
+    with open(out) as f:
+        record = json.load(f)
+    with open(narrow) as f:
+        taken = json.load(f)
+
+    def worst(ops):
+        return max([v[0], o["op"], o["call"], k] for o in ops
+                   for k, v in o["outputs"].items())
+
+    points = taken["savepoints"]
+    jumps = []
+    for p in points:
+        if p["diff"][0] <= ROUND_OFF_MULTIPLE * p["yardstick"]:
+            continue
+        jump = {"savepoint": p["savepoint"], "call": p["call"],
+                "var": p["var"], "over_scale": p["diff"][0],
+                "cell": p["diff"][1], "yardstick": p["yardstick"]}
+        before = [q["diff"][0] / q["yardstick"] for q in points
+                  if q["savepoint"] == p["savepoint"].replace("-Out", "-In")
+                  and q["call"] == p["call"] and q["yardstick"] > 0]
+        if p["savepoint"].endswith("-Out") and before:
+            jump["inputs_over_yardstick"] = max(before)
+        jumps.append(jump)
+    entry = next(f for f in record["flagged"] if f["step"] == step)
+    largest = worst(taken["operators"])
+    at = next(o for o in taken["operators"]
+              if [o["op"], o["call"]] == largest[1:3])
+    entry.update({
+        "identical_inputs_worst": largest,
+        "identical_inputs_worst_yardstick": at["yardstick"][largest[3]],
+        "identical_inputs_d_sw": worst(
+            [o for o in taken["operators"] if o["op"] == "d_sw"])[0],
+        "jumps": jumps,
+        "branches": taken["branches"],
+    })
+    with open(out, "w") as f:
+        json.dump(record, f, indent=1)
+    return record
+
+
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(
         description="the reference's nine-day trajectory on the CPU, or "
@@ -627,14 +1550,67 @@ if __name__ == "__main__":
     parser.add_argument("dtype", choices=("float32", "float64"))
     parser.add_argument("--out", required=True)
     parser.add_argument("--days", type=int, default=9)
+    parser.add_argument("--state-in", default=None, metavar="NPZ",
+                        help="start the reference's run from this saved "
+                             "state instead of the initial one")
+    parser.add_argument("--start-day", type=int, default=1,
+                        help="the number of the first day run (3 from a "
+                             "day-2 state)")
+    parser.add_argument("--state-out", default=None, metavar="NPZ",
+                        help="save the reference's last state")
     parser.add_argument("--from-state", default=None,
                         help="an .npz state: step both packages from it")
+    parser.add_argument("--lockstep", type=int, default=None,
+                        metavar="STEPS",
+                        help="with --from-state: STEPS steps of the "
+                             "reference, the port from the reference's "
+                             "state and the port's own run (`_lockstep`)")
+    parser.add_argument("--flagged-dir", default=None,
+                        help="where the lockstep saves the reference's "
+                             "input of flagged steps (default: beside --out)")
+    parser.add_argument("--card", nargs=len(CARD_RUNS) + 1, default=None,
+                        metavar=("CARD",) + CARD_RUNS[1:] + ("CARD_NPZ",),
+                        help="add these day-3 runs' records (`_card`, "
+                             "CARD_RUNS) and the card's last state to the "
+                             "lockstep record --out")
+    parser.add_argument("--narrow", default=None, metavar="NPZ",
+                        help="a flagged step's input: one step of both "
+                             "packages taken apart (`_narrow`)")
+    parser.add_argument("--branch", nargs=6, default=None,
+                        metavar=("CALL", "FIELD", "T", "I", "J", "K"),
+                        help="with --narrow: the hord-6 branch inputs of "
+                             "FIELD's transport in d_sw call CALL near "
+                             "cell (T, I, J, K) (`_branch`)")
+    parser.add_argument("--attach", nargs=2, default=None,
+                        metavar=("STEP", "NARROW"),
+                        help="add a --narrow/--branch record of flagged "
+                             "step STEP to the lockstep record --out")
+    parser.add_argument("--threads", type=int, default=2,
+                        help="torch's threads in each of the lockstep's "
+                             "three port processes, and in --narrow")
     args = parser.parse_args()
     import jax
 
     jax.config.update("jax_num_cpu_devices", 6)
-    if args.from_state:
+    if args.attach:
+        _attach(args.out, int(args.attach[0]), args.attach[1])
+    elif args.card:
+        _card(args.out, args.card[-1], args.flagged_dir or os.path.dirname(
+            os.path.abspath(args.out)), **dict(zip(CARD_RUNS, args.card)))
+    elif args.narrow and args.branch:
+        call, field, *cell = args.branch
+        _branch(args.narrow, args.out, args.threads, int(call), field,
+                tuple(int(c) for c in cell))
+    elif args.narrow:
+        _narrow(args.narrow, args.out, args.threads)
+    elif args.from_state and args.lockstep is not None:
+        assert args.dtype == "float64", "the lockstep runs at float64"
+        _lockstep(args.from_state, args.lockstep, args.out,
+                  args.flagged_dir or os.path.dirname(
+                      os.path.abspath(args.out)), args.threads)
+    elif args.from_state:
         assert args.dtype == "float64", "the one-state steps run at float64"
         _same_state(args.from_state, args.out)
     else:
-        _generate(args.dtype, args.days, args.out)
+        _generate(args.dtype, args.days, args.out, args.state_in,
+                  args.start_day, args.state_out)

@@ -170,7 +170,8 @@ def test_the_nine_day_run_defaults_to_the_card(monkeypatch):
 
     asked = []
 
-    def stand_in(days, device, dtype, out, state_out, ulp_noise):
+    def stand_in(days, device, dtype, out, state_out, ulp_noise, state_in,
+                 start_day):
         asked.append((days, device, dtype))
         raise RuntimeError("stop before the run")
 
